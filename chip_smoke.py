@@ -2,19 +2,27 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path, the fused stereo tracking step
-(tpuslam_torch.engine.track_device.FusedTrackStep), at full size:
-752x480 stereo, 1024 ORB features, 8 levels at scale 1.2, a local map of
-P = 2048 rows. Phases, each raising on failure:
+Drives the port's main paths at full size: 752x480 stereo, 1024 ORB
+features, 8 levels at scale 1.2. Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes of the main path, and time both with CUDA events;
-  3. render 17 stereo frames, build the local map from frame 0, track
-     frames 1..16 through the kernels (pose chained on the device, from
-     frame 3 on under torch.cuda.set_sync_debug_mode("error")), check every
-     pose against ground truth and against the same step run with the
-     plain versions, and check the launch counters.
+     the shapes of the main paths (the pose LM at the fused step's N = 1024
+     and at the host tracker's shapes: 700 observations padded to 768,
+     f64 inputs cast to f32), and time both with CUDA events;
+  3. the fused tracking step (tpuslam_torch.engine.track_device.
+     FusedTrackStep) on a local map of P = 2048 rows built from frame 0:
+     track frames 1..16 through the kernels (pose chained on the device,
+     from frame 3 on under torch.cuda.set_sync_debug_mode("error")), check
+     every pose against ground truth and against the same step run with
+     the plain versions, and check the launch counters;
+  4. the System (tpuslam_torch.engine.system.System.track_stereo) over 60
+     frames, twice: (a) synchronous mapping and tracking, with frames
+     40..49 on the host tracking path; (b) bench.py's configuration,
+     async mapping + pipelined tracking, then shutdown(). Each run must end
+     OK with >= 3 keyframes and > 100 map points, an unscaled ATE under
+     5 cm and a Horn scale within 3 % of 1, no mapper errors, and launches
+     of both kernels.
 The last lines are the kernels' JSON record, the nvidia-smi line and
 {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
@@ -33,9 +41,12 @@ P_BASE = 2048
 N_LEVELS, SCALE = 8, 1.2
 FX = FY = 458.0
 BASELINE = 0.11
-N_FRAMES = 17          # frame 0 builds the map, 1..16 are tracked
+N_FRAMES = 17          # phase 3: frame 0 builds the map, 1..16 are tracked
 SYNC_CHECK_FROM = 3
 N_TIMED = 50
+N_SYSTEM = 60          # phase 4: frames per System run
+HOST_PATH = range(40, 50)  # phase 4 (a): frames tracked by the host path
+WARMUP = 5             # phase 4: frames left out of the per-frame times
 
 
 def log(*a):
@@ -158,10 +169,56 @@ def phase_kernels(dev, seq):
     plain_ms = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args))
     log(f"[kernels] pose LM N=1024, 4 rounds x 10 iters (stereo): kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms (median of {N_TIMED})")
+
+    # -- pose LM at the host tracker's shapes (Tracker._pose_opt): 700
+    # observations from f64 numpy, padded with invalid rows to 768, cast
+    # to f32 by the dispatcher
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
+
+    rng = np.random.RandomState(2)
+    n, nb = 700, 768
+    cx, cy = W / 2.0, H / 2.0
+    bf = FX * BASELINE
+    X = np.stack([rng.randn(n), rng.randn(n), rng.rand(n) * 4 + 2], -1)
+    u = FX * X[:, 0] / X[:, 2] + cx
+    v = FY * X[:, 1] / X[:, 2] + cy
+    uvr = np.stack([u, v, u - bf / X[:, 2]], -1) + rng.randn(n, 3) * 0.3
+    uvr[:70] += rng.randn(70, 3) * 40
+    is_st = np.zeros(nb, bool)
+    is_st[: n // 2] = True
+    valid = np.zeros(nb, bool)
+    valid[:n] = True
+    pad = ((0, nb - n), (0, 0))
+    dR, dt = _se3_exp(torch.tensor([0.05, -0.02, 0.03, 0.02, -0.015, 0.01], dtype=torch.float64))
+    inv_s2 = SCALE ** (-2.0 * rng.randint(0, N_LEVELS, n))
+    f64 = [dR, dt, torch.tensor(np.pad(X, pad)), torch.tensor(np.pad(uvr, pad)),
+           torch.tensor(np.pad(inv_s2, (0, nb - n)))]
+    args = [a.to(dev) for a in f64] + [torch.tensor(is_st, device=dev),
+                                       torch.tensor(valid, device=dev), FX, FY, cx, cy, bf]
+    before = pose_opt_cuda.counter.launches
+    Rk, tk, ik, _ = pose_optimize_best(*args)
+    check(pose_opt_cuda.counter.launches == before + 1, "host-shape solve did not launch")
+    args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + args[5:]
+    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32)
+    torch.cuda.synchronize()
+    eR = float((Rk - Rp).abs().max())
+    et = float((tk - tp).abs().max())
+    agree = float((ik == ip).float().mean())
+    log(f"[kernels] pose LM host shapes (N = {n} padded to {nb}, f64 -> f32): |dR| {eR:.3g} "
+        f"|dt| {et:.3g} inlier agreement {agree:.4f}, padded rows inliers "
+        f"{int(ik[n:].sum())}")
+    check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99 and not bool(ik[n:].any()),
+          "pose LM kernel vs plain out of tolerance at the host shapes")
+    worst = max(worst, eR, et)
+    ms_h = median_ms(lambda: pose_optimize_best(*args))
+    plain_ms_h = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args32), n=10)
+    log(f"[kernels] pose LM N={nb} host shapes: kernel {ms_h:.4f} ms (cast included), "
+        f"plain {plain_ms_h:.4f} ms (median of {N_TIMED} and 10)")
     records.append(dict(name="pose_lm", route="cuda",
                         source="tpuslam_torch/csrc/pose_opt.cu",
                         replaces="tpuslam/solve/pose_opt_pallas.py:317",
-                        max_abs_err=worst, ms=ms, plain_ms=plain_ms))
+                        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
+                        host_shapes_ms=ms_h, host_shapes_plain_ms=plain_ms_h))
     return records
 
 
@@ -190,7 +247,7 @@ def rot_err_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
 
 
-def phase_slice(dev, seq):
+def phase_slice(dev, seq, all_frames):
     import torch
 
     from tpuslam_torch.cameras import Pinhole
@@ -200,11 +257,7 @@ def phase_slice(dev, seq):
     from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.solve import pose_opt_cuda
 
-    t0 = time.perf_counter()
-    frames = [np.stack([u8(seq.frame(i)), u8(seq.frame(i, right=True))])
-              for i in range(N_FRAMES)]
-    log(f"[slice] rendered {N_FRAMES} stereo frames {W}x{H} in "
-        f"{time.perf_counter() - t0:.1f} s (host)")
+    frames = [np.stack(f) for f in all_frames[:N_FRAMES]]
     cam = Pinhole([FX, FY, seq.cx, seq.cy], W, H)
     bf = FX * BASELINE
     step = FusedTrackStep(cam, OrbConfig(n_features=N_FEATURES), TrackingConfig(),
@@ -290,6 +343,90 @@ def phase_slice(dev, seq):
     return launches
 
 
+def ate(est, gt, with_scale):
+    """RMSE of the positions after Horn alignment of est onto gt (the
+    protocol of tpuslam/eval/ate.py) and the alignment's scale."""
+    mc, dc = est - est.mean(0), gt - gt.mean(0)
+    U, S, Vt = np.linalg.svd(mc.T @ dc)
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = (U @ D @ Vt).T
+    s = float(np.trace(np.diag(S) @ D) / (mc ** 2).sum()) if with_scale else 1.0
+    res = s * mc @ R.T - dc
+    return float(np.sqrt((res ** 2).sum(1).mean())), s
+
+
+def phase_system(dev, seq, frames, smi):
+    """System.track_stereo over N_SYSTEM frames, synchronous then
+    async + pipelined; returns the launch counts of each run."""
+    import torch
+
+    from tpuslam_torch.cameras import Pinhole
+    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+    from tpuslam_torch.engine.system import System
+    from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    cam = Pinhole([FX, FY, seq.cx, seq.cy], W, H)
+    counts = {}
+    for name, asyn in (("a_sync", False), ("b_async_pipelined", True)):
+        cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
+                         tracking=TrackingConfig(min_stereo_init_features=200, pipelined=asyn))
+        slam = System(cam, cfg, bf=FX * BASELINE, async_mapping=asyn, device=dev)
+        GLOBAL_TIMER.samples.clear()
+        patch_cuda.counter.launches = 0
+        pose_opt_cuda.counter.launches = 0
+        wall = []
+        for i in range(N_SYSTEM):
+            if not asyn:
+                slam.tracker.fused_enabled = i not in HOST_PATH
+            t0 = time.perf_counter()
+            slam.track_stereo(frames[i][0], frames[i][1], i / seq.fps)
+            wall.append((time.perf_counter() - t0) * 1e3)
+        slam.shutdown()
+        torch.cuda.synchronize()
+        launches = {"patch_gather": patch_cuda.counter.launches,
+                    "pose_lm": pose_opt_cuda.counter.launches}
+        n_fused = len(GLOBAL_TIMER.samples.get("fused.dispatch", []))
+        errors = slam.async_mapper.errors if slam.async_mapper is not None else []
+        m = slam.map
+        n_kf = len(m.valid_kf_ids())
+        n_mp = int(m.mp_valid[: m.n_mp].sum())
+        traj = slam.trajectory_tum()
+        est = np.array([r[1:4] for r in traj])
+        gt = np.array([-seq.gt_pose_cw(r[0])[0].T @ seq.gt_pose_cw(r[0])[1] for r in traj])
+        rmse, _ = ate(est, gt, False)
+        _, scale = ate(est, gt, True)
+        steady = np.array(wall[WARMUP:])
+        log(f"[system {name}] state {slam.get_tracking_state().name}, {n_kf} KFs, {n_mp} map "
+            f"points, {len(traj)} trajectory rows, ATE {rmse * 100:.3f} cm, Horn scale "
+            f"{scale:.5f}, mapper errors {len(errors)}")
+        log(f"[system {name}] track_stereo wall ms over frames {WARMUP}..{N_SYSTEM - 1}: "
+            f"median {np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max "
+            f"{steady.max():.3f}; first frame {wall[0]:.1f} ms; card {smi}")
+        for stage, st in sorted(GLOBAL_TIMER.summary().items(), key=lambda kv: -kv[1]["total_s"]):
+            log(f"[system {name}] stage {stage:16s} n {st['n']:3d} median "
+                f"{st['median_ms']:9.3f} ms p90 {st['p90_ms']:9.3f} ms total "
+                f"{st['total_s'] * 1e3:10.1f} ms")
+        log(f"[system {name}] launches {launches}; pose LM split: fused step "
+            f"{4 * n_fused} ({n_fused} dispatches x 4), host path "
+            f"{launches['pose_lm'] - 4 * n_fused}")
+        check(slam.get_tracking_state() == State.OK, f"{name}: final state not OK")
+        check(n_kf >= 3 and n_mp > 100, f"{name}: {n_kf} KFs / {n_mp} points")
+        check(len(traj) >= N_SYSTEM - 2 and np.isfinite(est).all(), f"{name}: trajectory")
+        check(rmse < 0.05 and abs(scale - 1.0) < 0.03, f"{name}: ATE {rmse} scale {scale}")
+        check(not errors, f"{name}: mapper errors {errors}")
+        check(launches["patch_gather"] > 0 and launches["pose_lm"] > 0,
+              f"{name}: a kernel was never launched: {launches}")
+        check(launches["patch_gather"] >= 16 * n_fused and launches["pose_lm"] >= 4 * n_fused,
+              f"{name}: fewer launches than fused dispatches")
+        if not asyn:
+            check(launches["pose_lm"] > 4 * n_fused, "a_sync: the host path ran no pose LM")
+        counts[name] = launches
+    return counts
+
+
 def main():
     import torch
 
@@ -313,12 +450,17 @@ def main():
     log(f"[build] kernels built/loaded in {time.perf_counter() - t0:.1f} s "
         f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
 
-    seq = SyntheticSequence(n_frames=N_FRAMES, fps=20, speed=0.5, baseline=BASELINE,
+    seq = SyntheticSequence(n_frames=N_SYSTEM, fps=20, speed=0.5, baseline=BASELINE,
                             height=H, width=W, fx=FX, fy=FY)
+    t0 = time.perf_counter()
+    frames = [(u8(seq.frame(i)), u8(seq.frame(i, right=True))) for i in range(N_SYSTEM)]
+    log(f"[render] {N_SYSTEM} stereo frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host)")
     records = phase_kernels(dev, seq)
-    launches = phase_slice(dev, seq)
+    by_path = {"fused_step": phase_slice(dev, seq, frames)}
+    by_path.update(phase_system(dev, seq, frames, smi))
     for r in records:
-        r["launches"] = launches[r["name"]]
+        r["launches"] = sum(c[r["name"]] for c in by_path.values())
+        r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

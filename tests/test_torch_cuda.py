@@ -116,3 +116,51 @@ def test_fused_step_kernels_match_plain(cuda, monkeypatch):
     assert (out["pose"][9:12] - ref["pose"][9:12]).abs().max() <= 5e-3
     assert (out["assoc"] == ref["assoc"]).float().mean() >= 0.95
     assert int(out["pose"][12]) >= 100
+
+
+def test_host_pose_route_matches_plain(cuda):
+    """The host tracker's route (pose_opt_dispatch): f64 inputs cast to f32,
+    700 observations padded with invalid rows to 768."""
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
+
+    args = _pose_problem(700, True, cuda, seed=4)
+    pad = lambda a, v: torch.cat([a, torch.full((68,) + a.shape[1:], v, dtype=a.dtype,  # noqa: E731
+                                                 device=cuda)])
+    X, uvr, is2, st, valid = (pad(args[2], 0), pad(args[3], 0), pad(args[4], 1),
+                              pad(args[5], False), pad(args[6], False))
+    f64 = [a.double() for a in (args[0], args[1], X, uvr, is2)]
+    before = pose_opt_cuda.counter.launches
+    R, t, inl, _ = pose_optimize_best(*f64, st, valid, *args[7:])
+    assert pose_opt_cuda.counter.launches == before + 1
+    Rp, tp, inlp, _ = pose_opt_cuda.pose_optimize_plain(*args[:2], X, uvr, is2, st, valid,
+                                                        *args[7:])
+    assert (R - Rp).abs().max() <= 1e-4 and (t - tp).abs().max() <= 1e-3
+    assert (inl == inlp).float().mean() >= 0.99 and not inl[700:].any()
+
+
+def test_system_on_the_card_matches_cpu(cuda):
+    """The port's System on the card against the same System on the CPU:
+    8 rendered frames, a keyframe every 2 frames (init, fused and host
+    tracking, triangulation, fusion, local BA); poses within 1 cm."""
+    from tpuslam_torch.engine.config import SlamConfig
+    from tpuslam_torch.engine.system import System
+
+    seq = SyntheticSequence(n_frames=8, fps=10, speed=0.5, baseline=0.1)
+    cfg = SlamConfig(orb=OrbConfig(n_features=500),
+                     tracking=TrackingConfig(min_stereo_init_features=200,
+                                             max_frames_between_kf=2))
+    runs = {}
+    for dev in (cuda, torch.device("cpu")):
+        slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240), cfg,
+                      bf=seq.fx * seq.baseline, device=dev)
+        n_patch, n_pose = patch_cuda.counter.launches, pose_opt_cuda.counter.launches
+        for i in range(8):
+            slam.tracker.fused_enabled = i != 5          # frame 5: the host path
+            slam.track_stereo(seq.frame(i), seq.frame(i, right=True), i / seq.fps)
+        runs[dev.type] = (slam, patch_cuda.counter.launches - n_patch,
+                          pose_opt_cuda.counter.launches - n_pose)
+    gpu, cpu = runs["cuda"], runs["cpu"]
+    assert gpu[1] == 8 * 16 and gpu[2] > 6 * 4 and cpu[1:] == (0, 0)
+    assert gpu[0].get_tracking_state().name == "OK" and len(gpu[0].map.valid_kf_ids()) >= 3
+    for a, b in zip(gpu[0].trajectory_tum(), cpu[0].trajectory_tum()):
+        assert abs(a[0] - b[0]) < 1e-9 and np.linalg.norm(np.subtract(a[1:4], b[1:4])) < 0.01

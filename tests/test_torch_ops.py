@@ -17,6 +17,7 @@ import torch
 
 from tpuslam.cameras import Pinhole as JPinhole
 from tpuslam.core import robust as j_robust
+from tpuslam.engine import config as j_config
 from tpuslam.engine.config import TrackingConfig as JTrackingConfig
 from tpuslam.ops import fast as j_fast
 from tpuslam.ops import hamming as j_ham
@@ -27,6 +28,7 @@ from tpuslam.ops import stereo as j_stereo
 from tpuslam.ops.patch_pallas import MAX_SIZE, _extract_patches_tpu, _extract_patches_xla
 from tpuslam_torch.cameras import Pinhole
 from tpuslam_torch.core import robust
+from tpuslam_torch.engine import config
 from tpuslam_torch.engine.config import OrbConfig, TrackingConfig
 from tpuslam_torch.ops import fast, hamming, image, match, orb, patch_cuda, stereo
 
@@ -58,13 +60,17 @@ def test_extractor_buffers_match_constants():
     assert np.array_equal(ex.desc_lut.numpy(), lut_bf16)
 
 
-@pytest.mark.parametrize("pair", ["orb", "tracking"])
+@pytest.mark.parametrize("pair", ["orb", "tracking", "MappingConfig", "InertialConfig",
+                                  "LoopConfig", "SlamConfig"])
 def test_config_fields_and_defaults(pair):
     jcls, tcls = {"orb": (j_orb.OrbConfig, OrbConfig),
-                  "tracking": (JTrackingConfig, TrackingConfig)}[pair]
+                  "tracking": (JTrackingConfig, TrackingConfig)}.get(
+        pair, (getattr(j_config, pair, None), getattr(config, pair, None)))
     jf = [(f.name, f.default) for f in dataclasses.fields(jcls)]
     tf = [(f.name, f.default) for f in dataclasses.fields(tcls)]
     assert jf == tf
+    # default instances (SlamConfig's nested configs come from factories)
+    assert dataclasses.asdict(jcls()) == dataclasses.asdict(tcls())
 
 
 @pytest.mark.parametrize("n", [500, 1000, 1024])

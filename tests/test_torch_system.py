@@ -1,0 +1,176 @@
+"""The port's stereo System end to end, on the CPU.
+
+  * The slice as a whole: tpuslam's System and the port's System track
+    the same 8 rendered frames (376x240, 500 features, a keyframe every 2
+    frames, so stereo init, keyframe insertion, triangulation, fusion and
+    local BA all run); per frame the tracking state and the keyframe count
+    must be equal and the poses within 1 cm / 0.2 degrees.
+  * The port alone over 20 frames, with the gates of
+    tests/test_e2e_stereo.py (state OK, >= 2 KFs, > 100 points, unscaled
+    ATE < 5 cm, Horn scale within 3 % of 1), and the trajectory savers.
+  * bench.py's configuration (async mapping + pipelined tracking): only
+    the state after flush() is asserted, not quality during the race.
+  * The sensors and options of later ROADMAP items raise.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from tpuslam.cameras import Pinhole as JPinhole
+from tpuslam.engine import System as JSystem
+from tpuslam.engine.config import SlamConfig as JSlamConfig
+from tpuslam.engine.config import TrackingConfig as JTrackingConfig
+from tpuslam.engine.system import Sensor as JSensor
+from tpuslam.eval.ate import ate_rmse
+from tpuslam.ops.orb import OrbConfig as JOrbConfig
+from tpuslam_torch.cameras import Pinhole
+from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+from tpuslam_torch.engine.system import Sensor, System
+from tpuslam_torch.engine.tracking import State
+from tpuslam_torch.io.synthetic import SyntheticSequence
+
+torch.set_num_threads(2)
+
+
+def _rot_deg(Ra, Rb):
+    c = (np.trace(Ra @ Rb.T) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+@pytest.fixture(scope="module")
+def seq20():
+    seq = SyntheticSequence(n_frames=20, fps=10, speed=0.5, baseline=0.1)
+    return seq, [(seq.frame(i), seq.frame(i, right=True)) for i in range(seq.n_frames)]
+
+
+def _port(seq, n_features=700, **kw):
+    cam = Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height)
+    tc = dict(min_stereo_init_features=200)
+    tc.update(kw.pop("tracking", {}))
+    cfg = SlamConfig(orb=OrbConfig(n_features=n_features), tracking=TrackingConfig(**tc))
+    return System(cam, cfg, sensor=Sensor.STEREO, bf=seq.fx * seq.baseline, **kw)
+
+
+def test_slice_matches_tpuslam_system(seq20):
+    seq, frames = seq20
+    n = 8
+    jcfg = JSlamConfig(orb=JOrbConfig(n_features=500),
+                       tracking=JTrackingConfig(min_stereo_init_features=200,
+                                                max_frames_between_kf=2))
+    js = JSystem(JPinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height), jcfg,
+                 sensor=JSensor.STEREO, bf=seq.fx * seq.baseline)
+    ts = _port(seq, 500, tracking=dict(max_frames_between_kf=2))
+    n_ba = 0
+    for i in range(n):
+        Tj = js.track_stereo(*frames[i], i / seq.fps)
+        Tt = ts.track_stereo(*frames[i], i / seq.fps)
+        assert ts.get_tracking_state().name == js.get_tracking_state().name == "OK", i
+        assert len(ts.map.valid_kf_ids()) == len(js.map.valid_kf_ids()), i
+        assert np.linalg.norm(Tt[:3, 3] - Tj[:3, 3]) < 0.01, i
+        assert _rot_deg(Tt[:3, :3], Tj[:3, :3]) < 0.2, i
+        n_ba = ts.map.map_version
+    assert len(ts.map.valid_kf_ids()) >= 3 and n_ba >= 2       # local BA ran
+    n_pts = int(ts.map.mp_valid[: ts.map.n_mp].sum())
+    assert abs(n_pts - int(js.map.mp_valid[: js.map.n_mp].sum())) <= 0.05 * n_pts
+    for (a, b) in zip(ts.trajectory_tum(), js.trajectory_tum()):
+        np.testing.assert_allclose(a, b, atol=0.01)
+
+
+def _gt_xyz(seq, traj):
+    return np.array([-seq.gt_pose_cw(r[0])[0].T @ seq.gt_pose_cw(r[0])[1] for r in traj])
+
+
+def test_port_system_tracks_20_frames(seq20, tmp_path):
+    seq, frames = seq20
+    slam = _port(seq)
+    for i in range(seq.n_frames):
+        slam.track_stereo(*frames[i], i / seq.fps)
+    slam.shutdown()
+    assert slam.get_tracking_state() == State.OK
+    assert len(slam.map.valid_kf_ids()) >= 2
+    assert slam.map.mp_valid[: slam.map.n_mp].sum() > 100
+    traj = slam.trajectory_tum()
+    assert len(traj) >= 15
+    est = np.array([r[1:4] for r in traj])
+    gt = _gt_xyz(seq, traj)
+    rmse_s, scale = ate_rmse(est, gt, with_scale=True)
+    assert abs(scale - 1.0) < 0.03, scale
+    rmse, _ = ate_rmse(est, gt, with_scale=False)
+    assert rmse < 0.05, rmse
+    assert len(slam.get_tracked_map_points()) == 700
+    assert slam.get_tracked_keypoints_un().shape == (700, 2)
+    # the savers write what trajectory_tum holds
+    slam.save_trajectory_tum(tmp_path / "t.txt")
+    slam.save_trajectory_euroc(tmp_path / "e.txt")
+    slam.save_trajectory_kitti(tmp_path / "k.txt")
+    slam.save_keyframe_trajectory_tum(tmp_path / "kt.txt")
+    slam.save_keyframe_trajectory_euroc(tmp_path / "ke.txt")
+    tum = np.loadtxt(tmp_path / "t.txt")
+    np.testing.assert_allclose(tum, np.array(traj), atol=1e-8)
+    eu = np.loadtxt(tmp_path / "e.txt")
+    np.testing.assert_allclose(eu[:, 1:4], tum[:, 1:4], atol=1e-8)
+    np.testing.assert_allclose(eu[:, 4], tum[:, 7], atol=1e-8)        # qw first
+    ki = np.loadtxt(tmp_path / "k.txt").reshape(-1, 3, 4)
+    np.testing.assert_allclose(ki[:, :, 3], tum[:, 1:4], atol=1e-8)
+    assert len(np.loadtxt(tmp_path / "kt.txt", ndmin=2)) == len(slam.map.valid_kf_ids())
+    assert len(np.loadtxt(tmp_path / "ke.txt", ndmin=2)) == len(slam.map.valid_kf_ids())
+
+
+def test_async_pipelined_state_after_flush(seq20):
+    seq, frames = seq20
+    slam = _port(seq, async_mapping=True, tracking=dict(pipelined=True))
+    out = [slam.track_stereo(*frames[i], i / seq.fps) for i in range(12)]
+    # frame 0 initializes; later frames are still in flight when
+    # track_stereo returns, and land in the trajectory one frame later
+    assert out[0] is not None and all(T is None for T in out[1:])
+    slam.async_mapper.flush()          # raises a worker error
+    slam.shutdown()
+    assert slam.async_mapper.errors == []
+    assert not slam.async_mapper.worker.is_alive()
+    assert slam.get_tracking_state() == State.OK
+    assert len(slam.tracker.trajectory) == 12 and slam.tracker._pending is None
+    assert len(slam.map.valid_kf_ids()) >= 2
+    assert slam.map.mp_valid[: slam.map.n_mp].sum() > 100
+    assert slam.map.check_essential_graph() == []
+
+
+def test_modes_and_resets(seq20):
+    seq, frames = seq20
+    slam = _port(seq, 500)
+    for i in range(3):
+        slam.track_stereo(*frames[i], i / seq.fps)
+    slam.activate_localization_mode()
+    n_kf = len(slam.map.valid_kf_ids())
+    for i in range(3, 6):
+        slam.track_stereo(*frames[i], i / seq.fps)
+    assert len(slam.map.valid_kf_ids()) == n_kf and slam.tracker.only_tracking
+    slam.deactivate_localization_mode()
+    slam.change_dataset()
+    slam.track_stereo(*frames[6], 0.6)
+    assert slam.map.current_map_id == 1 and slam.get_tracking_state() == State.OK
+    slam.reset_active_map()
+    assert slam.get_tracking_state() == State.NO_IMAGES_YET
+    assert len(slam.map.valid_kf_ids()) == 0
+    slam.reset()
+    assert slam.tracker.trajectory == [] and slam.map.mp_valid.sum() == 0
+
+
+@pytest.mark.parametrize("what", ["MONOCULAR", "RGBD", "IMU_STEREO", "vocab", "camera2",
+                                  "checkpoint", "track_rgbd"])
+def test_unported_parts_raise(what):
+    cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
+    if what in Sensor.__members__:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            System(cam, sensor=Sensor[what])
+        return
+    if what in ("vocab", "camera2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            System(cam, **{what: object()})
+        return
+    slam = System(cam)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        if what == "checkpoint":
+            slam.save_checkpoint("x")
+        else:
+            slam.track_rgbd(np.zeros((240, 376)), np.zeros((240, 376)), 0.0)

@@ -183,12 +183,26 @@ for i in (1, 2):
     Rrel = Rg @ R0.T
     err = np.linalg.norm(pose[9:12].numpy() - (tg - Rrel @ t0))
     assert err < 0.05 and int(pose[12]) >= 100, (i, err, pose)
+# the System: stereo init, fused tracking, a keyframe with local mapping
+from tpuslam_torch.engine.config import SlamConfig
+from tpuslam_torch.engine.system import System
+slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
+              SlamConfig(orb=OrbConfig(n_features=500),
+                         tracking=TrackingConfig(min_stereo_init_features=200,
+                                                 max_frames_between_kf=1)),
+              bf=seq.fx * seq.baseline)
+for i in range(3):
+    slam.track_stereo(seq.frame(i), seq.frame(i, right=True), i / seq.fps)
+assert slam.get_tracking_state().name == "OK" and len(slam.trajectory_tum()) == 3
+assert len(slam.map.valid_kf_ids()) >= 2 and slam.map.map_version >= 1
 assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_without_jax():
+    """The port imports and runs (the fused step, and its System with
+    mapping) with jax blocked."""
     res = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -36,6 +36,19 @@ class CameraModel:
     def cy(self):
         return float(self.params[3])
 
+    def K(self):
+        return np.array(
+            [[self.fx, 0, self.cx], [0, self.fy, self.cy], [0, 0, 1]], dtype=np.float32
+        )
+
+    @property
+    def spec(self):
+        """Static CamSpec for the optimization residuals (solve/reproj.py);
+        pinhole solvers take their intrinsics through the fx..bf scalars."""
+        from ..solve.reproj import PINHOLE
+
+        return PINHOLE
+
     def project(self, Xc):
         """[...,3] camera-frame points -> [...,2] pixels."""
         raise NotImplementedError

@@ -1,0 +1,254 @@
+"""System facade — the public API (port of tpuslam/engine/system.py,
+stereo).
+
+Mirrors the reference System (include/System.h:85-189): the constructor
+wires the tracker and the local mapper (synchronous, or behind
+tpuslam.parallel.async_mapping.AsyncMapper's worker thread), TrackStereo,
+state queries, localization mode, resets, Shutdown and the trajectory
+savers. Tracking and mapping run on one explicit device; the map is host
+state. Both threads issue device work on the default stream, so their
+work serialises there.
+
+The sensors and options of later ROADMAP items raise NotImplementedError
+naming the item; nothing falls back silently.
+"""
+
+from __future__ import annotations
+
+import enum
+
+import numpy as np
+import torch
+
+from tpuslam.parallel.async_mapping import AsyncMapper
+
+from ..core import lie
+from ..map.store import SlamMap
+from .config import SlamConfig
+from .local_mapping import LocalMapper
+from .tracking import Tracker
+
+
+class Sensor(enum.Enum):
+    MONOCULAR = 0
+    STEREO = 1
+    RGBD = 2
+    IMU_MONOCULAR = 3
+    IMU_STEREO = 4
+
+
+# the ROADMAP item each unported sensor or option belongs to
+_WAITS = {
+    Sensor.MONOCULAR: "mono init and RGB-D",
+    Sensor.RGBD: "mono init and RGB-D",
+    Sensor.IMU_MONOCULAR: "the IMU stack",
+    Sensor.IMU_STEREO: "the IMU stack",
+    "imu_calib": "the IMU stack",
+    "vocab": "relocalization with BoW, and loop closing",
+    "camera2": "fisheye",
+    "checkpoint": "tools",
+}
+
+
+def _not_ported(what, key=None):
+    return NotImplementedError(
+        f"{what} is not ported yet (ROADMAP item '{_WAITS[key if key is not None else what]}')")
+
+
+def _quat_rows(rows):
+    """[(t, R cw, t cw)] -> [(t, x, y, z, qx, qy, qz, qw)] camera-to-world."""
+    if not rows:
+        return []
+    t = [r[0] for r in rows]
+    R = torch.as_tensor(np.stack([r[1] for r in rows]), dtype=torch.float64)
+    tt = torch.as_tensor(np.stack([r[2] for r in rows]), dtype=torch.float64)
+    Rwc, twc = lie.se3_inverse(R, tt)
+    q = lie.rot_to_quat(Rwc).numpy()
+    p = twc.numpy()
+    return [(t[i], p[i, 0], p[i, 1], p[i, 2], q[i, 0], q[i, 1], q[i, 2], q[i, 3])
+            for i in range(len(rows))]
+
+
+class System:
+    def __init__(self, camera, cfg: SlamConfig | None = None, sensor: Sensor = Sensor.STEREO,
+                 imu_calib=None, vocab=None, bf: float = 0.0, async_mapping: bool = False,
+                 camera2=None, Tlr=None, device="cpu"):
+        """bf: fx * baseline in pixels (ref Camera.bf). async_mapping: run
+        local mapping on a worker thread (the reference's LocalMapping
+        thread). device: where extraction, matching, the pose solves, the
+        mapping kernels and BA run ("cuda" for the card)."""
+        if sensor != Sensor.STEREO:
+            raise _not_ported(f"sensor {sensor.name}", sensor)
+        for name, value in (("imu_calib", imu_calib), ("vocab", vocab), ("camera2", camera2)):
+            if value is not None:
+                raise _not_ported(name)
+        if Tlr is not None:
+            raise _not_ported("Tlr", "camera2")
+        self.cfg = cfg or SlamConfig()
+        self.camera = camera
+        self.sensor = sensor
+        self.device = torch.device(device)
+        self.map = SlamMap(self.cfg.orb.n_features, scale=self.cfg.orb.scale,
+                           n_levels=self.cfg.orb.n_levels)
+        self.local_mapper = LocalMapper(camera, self.cfg, self.map, bf=bf, device=self.device)
+        self.async_mapper = None
+        mapper_for_tracker = self.local_mapper
+        if async_mapping:
+            self.async_mapper = AsyncMapper(self.local_mapper, None, self.map.lock)
+            mapper_for_tracker = self.async_mapper
+        self.tracker = Tracker(camera, self.cfg, self.map, mapper_for_tracker,
+                               sensor="stereo", bf=bf, device=self.device)
+
+    # ------------------------------------------------------------------ API
+    def track_monocular(self, img, timestamp: float, imu=None):
+        raise _not_ported("track_monocular", Sensor.MONOCULAR)
+
+    def track_rgbd(self, img, depth, timestamp: float, imu=None):
+        raise _not_ported("track_rgbd", Sensor.RGBD)
+
+    def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
+        """Returns Tcw 4x4 (None before initialization); ref:
+        System::TrackStereo (System.cc:228). With TrackingConfig(
+        pipelined=True) a frame on the fused path is still in flight when
+        this returns (None); its pose reaches the trajectory when the next
+        frame completes it, or at shutdown()."""
+        if imu is not None:
+            raise _not_ported("imu", "imu_calib")
+        frame = self.tracker.track(img_left, timestamp, img_right=img_right)
+        if frame.R is None:
+            return None
+        T = np.eye(4)
+        T[:3, :3] = frame.R
+        T[:3, 3] = frame.t
+        return T
+
+    def get_tracking_state(self):
+        return self.tracker.state
+
+    def get_tracked_map_points(self):
+        """Per-feature map-point ids of the last frame, -1 = untracked
+        (ref: System::GetTrackedMapPoints System.h:170)."""
+        f = self.tracker.last_frame
+        if f is None or f.mp is None:
+            return np.full(0, -1, np.int32)
+        return f.mp.copy()
+
+    def get_tracked_keypoints_un(self):
+        """Undistorted keypoints of the last frame
+        (ref: System::GetTrackedKeyPointsUn System.h:171)."""
+        f = self.tracker.last_frame
+        if f is None:
+            return np.zeros((0, 2))
+        return f.feats.und_xy.copy()
+
+    # --------------------------------------------------------------- modes
+    def activate_localization_mode(self):
+        """Freeze the map: tracking only, no keyframe insertion
+        (ref: System::ActivateLocalizationMode System.h:122)."""
+        self.tracker.only_tracking = True
+
+    def deactivate_localization_mode(self):
+        """ref: System::DeactivateLocalizationMode (System.h:124)."""
+        self.tracker.only_tracking = False
+
+    def reset(self):
+        """Clear the whole Atlas and the tracker state (ref: System::Reset)."""
+        self.tracker.reset()
+
+    def reset_active_map(self):
+        """ref: System::ResetActiveMap (System.h:132)."""
+        self.tracker.reset_active_map()
+
+    def change_dataset(self):
+        """Multi-session runs: the next frame opens a new Atlas map
+        (ref: System::ChangeDataset System.h:178)."""
+        self.tracker._force_new_map = True
+
+    def shutdown(self):
+        """ref: System::Shutdown (System.cc:487) — settle the tracking
+        pipeline and join the mapping worker. Worker errors stay in
+        `async_mapper.errors` (AsyncMapper.flush raises them)."""
+        self.tracker._flush_pipeline()
+        self.tracker.last_frame = self.tracker._last_completed or self.tracker.last_frame
+        if self.async_mapper is not None:
+            self.async_mapper.shutdown()
+
+    # ------------------------------------------------------------ trajectory
+    def _ref_pose(self, ref_kf: int):
+        """Current world pose of a (possibly culled) reference KF: walk the
+        spanning tree composing the stored cull-time relatives
+        (ref: System::SaveTrajectoryTUM System.cc:525-540)."""
+        m = self.map
+        Ra = np.eye(3)
+        ta = np.zeros(3)
+        k = ref_kf
+        while k >= 0 and not m.kf_valid[k] and m.kf_tcp[k] is not None:
+            Rcp, tcp = m.kf_tcp[k]
+            ta = Ra @ tcp + ta
+            Ra = Ra @ Rcp
+            k = int(m.kf_parent[k])
+        if k < 0 or not m.kf_valid[k]:
+            return None
+        return Ra @ m.kf_R[k], Ra @ m.kf_t[k] + ta
+
+    def _frame_poses(self):
+        """[(t, Rcw, tcw)] of every logged frame, composed with its
+        reference KF's CURRENT pose."""
+        rows = []
+        for (t, Rcr, tcr, ref_kf, _lost) in self.tracker.trajectory:
+            ref = self._ref_pose(ref_kf)
+            if ref is not None:
+                Rr, tr_ = ref
+                rows.append((t, Rcr @ Rr, Rcr @ tr_ + tcr))
+        return rows
+
+    def trajectory_tum(self):
+        """[(t, x, y, z, qx, qy, qz, qw)] camera-to-world per tracked frame
+        (ref format: System::SaveTrajectoryTUM System.cc:514)."""
+        return _quat_rows(self._frame_poses())
+
+    def save_trajectory_tum(self, path: str):
+        with open(path, "w") as fh:
+            for row in self.trajectory_tum():
+                fh.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+
+    def save_trajectory_euroc(self, path: str):
+        """EuRoC format: timestamp[ns] x y z qw qx qy qz
+        (ref: System::SaveTrajectoryEuRoC System.cc:607)."""
+        with open(path, "w") as fh:
+            for (t, x, y, z, qx, qy, qz, qw) in self.trajectory_tum():
+                fh.write(f"{int(round(t * 1e9))} {x:.9f} {y:.9f} {z:.9f} "
+                         f"{qw:.9f} {qx:.9f} {qy:.9f} {qz:.9f}\n")
+
+    def save_trajectory_kitti(self, path: str):
+        """KITTI format: the 12 entries of the 3x4 Twc matrix per line
+        (ref: System::SaveTrajectoryKITTI System.cc:782)."""
+        with open(path, "w") as fh:
+            for (_t, R, tt) in self._frame_poses():
+                Rwc = R.T
+                row = np.concatenate([Rwc, (-Rwc @ tt)[:, None]], axis=1).reshape(-1)
+                fh.write(" ".join(f"{v:.9e}" for v in row) + "\n")
+
+    def keyframe_trajectory_tum(self):
+        m = self.map
+        return _quat_rows([(m.kf_time[k], m.kf_R[k], m.kf_t[k]) for k in m.valid_kf_ids()])
+
+    def save_keyframe_trajectory_tum(self, path: str):
+        """ref: System::SaveKeyFrameTrajectoryTUM (System.cc:574)."""
+        with open(path, "w") as fh:
+            for row in self.keyframe_trajectory_tum():
+                fh.write(" ".join(f"{v:.9f}" for v in row) + "\n")
+
+    def save_keyframe_trajectory_euroc(self, path: str):
+        """ref: System::SaveKeyFrameTrajectoryEuRoC (System.cc:730)."""
+        with open(path, "w") as fh:
+            for (t, x, y, z, qx, qy, qz, qw) in self.keyframe_trajectory_tum():
+                fh.write(f"{int(round(t * 1e9))} {x:.9f} {y:.9f} {z:.9f} "
+                         f"{qw:.9f} {qx:.9f} {qy:.9f} {qz:.9f}\n")
+
+    # ---------------------------------------------------------- checkpointing
+    def save_checkpoint(self, path: str):
+        raise _not_ported("save_checkpoint", "checkpoint")
+
+    def load_checkpoint(self, path: str):
+        raise _not_ported("load_checkpoint", "checkpoint")

@@ -1,0 +1,753 @@
+"""Tracking engine: the per-frame state machine (port of
+tpuslam/engine/tracking.py, visual stereo).
+
+The reference Tracking (src/Tracking.cc:829 Track() and friends):
+  - stereo initialization from depth (:1351)
+  - the fused on-device step (track_device.FusedTracker) in the OK state,
+    synchronous or pipelined, with the host path as its fallback
+  - reference-KF / motion-model tracking (:1750, :1879)
+  - local-map tracking (:1974) with frustum culling (:2358)
+  - keyframe decision (:2089) and creation (:2228)
+  - RECENTLY_LOST / LOST handling (Tracking.h:101-109)
+
+The state machine is host code over numpy; matching, the pose solves and
+the fused step run on the tracker's device. Every host pose solve goes
+through `pose_optimize_best`, i.e. the pose-LM kernel on the card. The
+IMU paths, monocular initialization and BoW relocalization wait for their
+ROADMAP items.
+"""
+
+from __future__ import annotations
+
+import enum
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from tpuslam.utils.pad import pad_to
+
+from ..map.store import FrameFeatures, SlamMap
+from ..ops import match as M
+from ..solve.pose_opt_dispatch import pose_optimize_best as pose_optimize
+from ..utils.timing import GLOBAL_TIMER as T
+from .config import SlamConfig
+from .frontend import Frontend
+from .track_device import DeviceFeatures, FusedTracker
+
+POSE_PAD = 256  # host pose solves pad their observations to a multiple of this
+
+
+class State(enum.Enum):
+    NO_IMAGES_YET = 0
+    NOT_INITIALIZED = 1
+    OK = 2
+    RECENTLY_LOST = 3
+    LOST = 4
+
+
+@dataclass
+class Frame:
+    feats: FrameFeatures | DeviceFeatures | None
+    time: float
+    frame_id: int
+    R: np.ndarray | None = None  # Tcw
+    t: np.ndarray | None = None
+    mp: np.ndarray | None = None  # [N] mp id per feature (-1 none)
+
+
+class Tracker:
+    def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
+                 sensor: str = "stereo", bf: float = 0.0, device="cpu"):
+        if sensor != "stereo":
+            raise NotImplementedError(
+                f"sensor {sensor!r}: monocular tracking is ROADMAP item "
+                "'mono init and RGB-D'")
+        self.camera = camera
+        self.cfg = cfg
+        self.map = slam_map
+        self.bf = bf
+        self.device = torch.device(device)
+        self.frontend = Frontend(camera, cfg.orb, bf=bf, device=self.device)
+        self.camspec = camera.spec
+        self.local_mapper = local_mapper
+        self.sensor = sensor
+        self.state = State.NO_IMAGES_YET
+        self.last_frame: Frame | None = None
+        self.ref_kf = -1
+        self.last_kf = -1
+        self.frames_since_kf = 0
+        self.frame_id = 0
+        self.trajectory = []  # (time, Rcr, tcr, ref_kf, lost)
+        self.n_inliers = 0
+        self.sf = self.map.scale_factors
+        self.inv_sigma2 = (1.0 / self.sf ** 2).astype(np.float64)
+        self.lost_since = 0.0
+        # localization-only mode (ref: mbOnlyTracking): track against the
+        # frozen map, no KF insertion
+        self.only_tracking = False
+        # ref: Tracking::mbVO — in localization mode, true when the frame
+        # tracks mostly temporary visual-odometry points
+        self.vo_mode = False
+        # set by System.change_dataset: the next frame opens a new map
+        self._force_new_map = False
+        # fused on-device tracking: one dispatch + one fetch per frame in
+        # the OK state; init, relocalization and fallbacks use the host path
+        self.fused_enabled = True
+        self._fused = None
+        # pipelined fused tracking: the in-flight (frame, device out,
+        # min_req), completed when the NEXT frame is dispatched
+        self._pending = None
+        self._last_completed = None
+
+    # ------------------------------------------------------------------ util
+    def _project(self, R, t, X):
+        Xc = X @ R.T + t
+        uv = self.camera.project_np(Xc)
+        return uv, Xc[:, 2], Xc
+
+    def _match(self, *args, **kw):
+        return M.match_padded(*args, device=self.device, **kw)
+
+    def _pose_opt(self, R0, t0, frame: Frame, mp_ids, X_by_feat=None, valid_by_feat=None):
+        """Motion-only optimization over the frame's current matches, on
+        the tracker's device in f32 (the pose-LM kernel on the card).
+        Observations are padded with invalid rows to a multiple of
+        POSE_PAD. Stereo features (u_right >= 0) contribute 3-dim residuals
+        (ref: PoseOptimization stereo edges Optimizer.cc:975).
+
+        X_by_feat/valid_by_feat: per-feature 3D positions + mask overriding
+        the map lookup (temporary visual-odometry points, localization
+        mode)."""
+        sel = np.nonzero(valid_by_feat if valid_by_feat is not None else mp_ids >= 0)[0]
+        n = len(sel)
+        if n < 3:
+            return R0, t0, np.zeros(0, bool), sel
+        nb = -(-n // POSE_PAD) * POSE_PAD
+        X = X_by_feat[sel] if X_by_feat is not None else self.map.mp_pos[mp_ids[sel]]
+        f = frame.feats
+        und = f.und_xy[sel]
+        if f.u_right is not None:
+            ur = f.u_right[sel]
+            stereo = ur >= 0
+        else:
+            ur = np.zeros(n)
+            stereo = np.zeros(n, bool)
+        valid = np.zeros(nb, bool)
+        valid[:n] = True
+        dev = self.device
+
+        def up(a, dtype=np.float32):
+            return torch.as_tensor(np.asarray(a, dtype), device=dev)
+
+        Rf, tf, inl, _ = pose_optimize(
+            up(R0), up(t0), up(pad_to(np.asarray(X, np.float32), nb)),
+            up(pad_to(np.concatenate([und, ur[:, None]], 1).astype(np.float32), nb)),
+            up(pad_to(self.inv_sigma2[f.octave[sel]].astype(np.float32), nb)),
+            up(pad_to(stereo, nb, False), bool), up(valid, bool),
+            self.camera.fx, self.camera.fy, self.camera.cx, self.camera.cy, self.bf,
+            cam=self.camspec)
+        return (Rf.cpu().numpy().astype(np.float64), tf.cpu().numpy().astype(np.float64),
+                inl.cpu().numpy()[:n], sel)
+
+    # ------------------------------------------------------------------ main
+    def track(self, img, time: float, img_right=None):
+        """img_right: the right image of the stereo pair."""
+        if img_right is None:
+            raise ValueError("stereo tracking needs img_right")
+        if (self.last_frame is not None and not self._force_new_map
+                and self.state not in (State.NO_IMAGES_YET, State.NOT_INITIALIZED)
+                and time < self.last_frame.time):
+            # timestamps went backwards: broken stream -> reset the active
+            # map (ref Tracking.cc:861-868)
+            from tpuslam.utils.verbose import print_mess
+            print_mess("[tracking] timestamp went backwards: reset")
+            self.reset_active_map()
+        # fused on-device path: extraction happens INSIDE the fused step
+        fused_ok = (
+            self.fused_enabled
+            and self.state == State.OK
+            and not self._force_new_map
+            and self.camspec.kind == "pinhole"
+            and self.last_frame is not None
+            and self.last_frame.mp is not None
+        )
+        frame = Frame(None, time, self.frame_id)
+        self.frame_id += 1
+        ran = False
+        if self._pending is not None and not (fused_ok and self.cfg.tracking.pipelined):
+            # leaving the pipelined path: settle the in-flight frame first
+            self._flush_pipeline()
+            self.last_frame = self._last_completed or self.last_frame
+        if fused_ok and self.cfg.tracking.pipelined:
+            # locking is staged inside (dispatch + result-apply under the
+            # map lock, the device fetch outside it)
+            with T.stage("track_fused"):
+                res = self._track_fused_pipelined(frame, img, img_right)
+            if res is not None:
+                self.last_frame = self._last_completed or self.last_frame
+                return frame
+        if fused_ok:
+            with self.map.lock:
+                with T.stage("track_fused"):
+                    res = self._track_fused(frame, img, img_right)
+                if res is not None:
+                    ran = True
+                    if res:
+                        self._post_track_ok(frame)
+                    else:
+                        # fused ran but failed: reuse its extraction for the
+                        # host fallback (motion model, wide windows,
+                        # RECENTLY_LOST handling)
+                        frame.R = frame.t = None
+                        frame.mp = None
+                        with T.stage("track"):
+                            self._track_frame(frame)
+        if not ran:
+            if frame.feats is None:
+                with T.stage("extract"):
+                    frame.feats = self.frontend.process_stereo(img, img_right)
+            # extraction ran lock-free; the state machine holds the map lock
+            # (ref: Track() under Map::mMutexMapUpdate, Tracking.cc:921)
+            with self.map.lock:
+                if self._force_new_map and self.state not in (
+                        State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+                    # dataset boundary: open a fresh Atlas map
+                    self._force_new_map = False
+                    self.map.create_new_map()
+                    self._reset_tracker_state()
+                if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+                    with T.stage("initialize"):
+                        self._initialize_stereo(frame)
+                else:
+                    with T.stage("track"):
+                        self._track_frame(frame)
+        # trajectory log: pose RELATIVE to the reference KF, so later map
+        # updates apply to logged frames too (ref: Tracking.cc:1327-1347)
+        if frame.R is not None and self.ref_kf >= 0:
+            self._log_pose(frame)
+        self.last_frame = frame
+        return frame
+
+    def _log_pose(self, frame: Frame):
+        m = self.map
+        Rr, tr_ = m.kf_R[self.ref_kf], m.kf_t[self.ref_kf]
+        Rcr = frame.R @ Rr.T
+        tcr = frame.t - Rcr @ tr_
+        self.trajectory.append((frame.time, Rcr, tcr, self.ref_kf, self.state != State.OK))
+
+    # ------------------------------------------------------------ stereo init
+    def _initialize_stereo(self, frame: Frame):
+        """ref: StereoInitialization (Tracking.cc:1351) — the first frame
+        with enough features becomes a KF; map points spring from depth."""
+        if frame.feats.valid.sum() < self.cfg.tracking.min_stereo_init_features:
+            return
+        m = self.map
+        frame.R = np.eye(3)
+        frame.t = np.zeros(3)
+        frame.mp = np.full(frame.feats.n, -1, np.int32)
+        kf = m.add_keyframe(frame.R, frame.t, frame.feats, frame.time, frame.frame_id)
+        n_pts = self._spawn_stereo_points(kf, frame, max_new=10 ** 9)
+        if n_pts < 100:
+            m.kf_valid[kf] = False
+            return
+        m.update_connections(kf)
+        self.ref_kf = kf
+        self.last_kf = kf
+        self.state = State.OK
+        self.frames_since_kf = 0
+        if self.local_mapper is not None:
+            self.local_mapper.on_new_keyframe(kf)
+
+    def _spawn_stereo_points(self, kf: int, frame: Frame, max_new=100):
+        """Create map points from stereo depth for unmatched features
+        (ref: CreateNewKeyFrame close-point spawning Tracking.cc:2270-2330):
+        in order of increasing depth, all points closer than th_depth x
+        baseline, then up to max_new."""
+        f = frame.feats
+        if f.depth is None:
+            return 0
+        m = self.map
+        free = (frame.mp < 0) & f.valid & (f.depth > 0)
+        order = np.argsort(np.where(free, f.depth, np.inf))
+        th = self.cfg.th_depth * (self.bf / self.camera.fx)
+        n = 0
+        Rwc = frame.R.T
+        Ow = -Rwc @ frame.t
+        for i in order:
+            if not free[i]:
+                break
+            z = f.depth[i]
+            if z <= 0 or (n >= max_new and z > th):
+                break
+            nx, ny = f.norm_xy[i]
+            Xw = Rwc @ np.array([nx * z, ny * z, z]) + Ow
+            frame.mp[i] = m.add_point(Xw, kf, int(i))
+            n += 1
+        return n
+
+    # ------------------------------------------------------------ fused path
+    def _fused_tracker(self):
+        if self._fused is None:
+            self._fused = FusedTracker(self)
+        return self._fused
+
+    def _min_req(self):
+        return self.cfg.tracking.min_inliers_local if self.frames_since_kf > 0 else 15
+
+    def _flush_pipeline(self):
+        """Complete the in-flight pipelined step so the tracker state is
+        consistent before a mode change or fallback."""
+        if self._pending is None:
+            return
+        pend_frame, out, min_req = self._pending
+        self._pending = None
+        fetched = self._fused.fetch_results(out)  # lock-free
+        with self.map.lock:
+            n_inl = self._fused.complete(out, pend_frame, fetched=fetched)
+            self.n_inliers = n_inl
+            self._finish_completed(pend_frame, n_inl, min_req)
+
+    def _finish_completed(self, frame: Frame, n_inl: int, min_req: int):
+        """Bookkeeping for a pipeline-completed frame: state machine, KF
+        decision, trajectory log (what the synchronous path does inline)."""
+        if n_inl >= min_req:
+            self._post_track_ok(frame)
+        else:
+            self.state = State.RECENTLY_LOST
+            self.lost_since = frame.time
+        if frame.R is not None and self.ref_kf >= 0:
+            self._log_pose(frame)
+        self._last_completed = frame
+
+    def _track_fused_pipelined(self, frame: Frame, img, img_right):
+        """Pipelined fused tracking (cfg.tracking.pipelined): dispatch the
+        CURRENT frame's step against the device-resident pose chain, then
+        complete the PREVIOUS frame. One frame of latency. Returns None
+        when the pipeline can't run (the caller falls back)."""
+        ft = self._fused_tracker()
+        self._last_completed = None
+        vote_frame = self.last_frame
+        if vote_frame is None or vote_frame.mp is None or vote_frame.R is None:
+            return None
+        with self.map.lock:
+            ok_map = ft.build_local_map(vote_frame.mp)
+            if ok_map:
+                min_req = self._min_req()
+                if self._pending is not None:
+                    pose_in = self._pending[1]["pose"]
+                else:
+                    pose_in = np.concatenate([
+                        np.asarray(self.last_frame.R, np.float32).ravel(),
+                        np.asarray(self.last_frame.t, np.float32), np.float32([0.0])])
+                out = ft.dispatch(img, img_right, pose_in, min_req)
+                pend = self._pending
+                self._pending = (frame, out, min_req)
+        if not ok_map:
+            self._flush_pipeline()
+            return None
+        if pend is not None:
+            pend_frame, pend_out, pend_req = pend
+            fetched = ft.fetch_results(pend_out)  # lock-free
+            with self.map.lock:
+                n_inl = ft.complete(pend_out, pend_frame, fetched=fetched)
+                self.n_inliers = n_inl
+                self._finish_completed(pend_frame, n_inl, pend_req)
+                if self.state != State.OK:
+                    # the in-flight step rode a failed pose: discard it and
+                    # let the host path take over on the next frame
+                    self._pending = None
+        return True
+
+    def _track_fused(self, frame: Frame, img, img_right):
+        """One-dispatch tracking via FusedTracker. Returns True (tracked),
+        False (too few inliers: the caller falls back to the host path with
+        the extracted features) or None (no usable local map)."""
+        ft = self._fused_tracker()
+        last = self.last_frame
+        if not ft.build_local_map(last.mp):
+            return None
+        min_req = self._min_req()
+        n_inl = ft.track(img, img_right, frame, last.R, last.t, min_req)
+        self.n_inliers = n_inl
+        return n_inl >= min_req
+
+    def _post_track_ok(self, frame: Frame):
+        """Shared post-tracking bookkeeping: state and KF decision (ref:
+        Track() after TrackLocalMap, Tracking.cc:1239+). tpuslam also
+        stores a frame velocity and a motion-model velocity here, which
+        only its inertial paths read."""
+        self.state = State.OK
+        self.frames_since_kf += 1
+        if not self.only_tracking and self._need_new_keyframe(frame):
+            self._create_keyframe(frame)
+
+    # -------------------------------------------------------------- tracking
+    def _track_frame(self, frame: Frame):
+        cfg = self.cfg.tracking
+        ok = False
+        if self.state == State.OK:
+            # pose prediction: the LAST POSE (tpuslam drops the constant-
+            # velocity extrapolation of Tracking.cc:1887 for vision-only
+            # tracking, whose closed loop it measured as unstable)
+            R0, t0 = self.last_frame.R, self.last_frame.t
+            if self.only_tracking and self.vo_mode:
+                # riding VO points in an unmapped region: try to relocate
+                # into the map each frame, else keep dead-reckoning on
+                # temporary points (ref Tracking.cc:1027-1047)
+                ok = self._relocalize(frame)
+                if ok:
+                    self.vo_mode = False
+                else:
+                    ok = self._track_motion_model(frame, R0, t0)
+                    if ok:
+                        self.frames_since_kf += 1
+                        return ok
+                if not ok:
+                    self.state = State.RECENTLY_LOST
+                    self.lost_since = frame.time
+                    self._keep_last_pose(frame)
+                    return False
+            # descriptor-first association (reference-KF match), with the
+            # window-gated motion model as the fallback
+            ok = self._track_reference_kf(frame, R0, t0)
+            if not ok:
+                ok = self._track_motion_model(frame, R0, t0)
+        elif self.state == State.RECENTLY_LOST:
+            ok = self._relocalize(frame)
+        if ok and self.only_tracking and self.vo_mode:
+            # the frame slid onto VO points: skip local-map tracking, stay
+            # OK (ref: !mbVO gate before TrackLocalMap, Tracking.cc:1161)
+            self.frames_since_kf += 1
+            return ok
+        if ok:
+            ok = self._track_local_map(frame)
+        if ok:
+            self._post_track_ok(frame)
+        else:
+            if self.state == State.OK:
+                self.state = State.RECENTLY_LOST
+                self.lost_since = frame.time
+            elif (self.state == State.RECENTLY_LOST
+                  and frame.time - self.lost_since > cfg.time_recently_lost):
+                self.state = State.LOST
+            self._keep_last_pose(frame)
+            if self.state == State.LOST:
+                self._handle_lost()
+        return ok
+
+    def _keep_last_pose(self, frame: Frame):
+        """A failed frame keeps the last pose for the trajectory."""
+        if frame.R is None and self.last_frame.R is not None:
+            frame.R = self.last_frame.R.copy()
+            frame.t = self.last_frame.t.copy()
+        if frame.mp is None:
+            frame.mp = np.full(frame.feats.n, -1, np.int32)
+
+    def _handle_lost(self):
+        """ref: Tracking.cc:1053-1058 + CreateMapInAtlas (:1689) — a mature
+        map spawns a fresh Atlas map; young maps are reset in place."""
+        m = self.map
+        if len(m.valid_kf_ids()) >= 10:
+            m.create_new_map()
+            self._reset_tracker_state()
+        else:
+            self.reset_active_map()
+
+    def reset_active_map(self):
+        """ref: Tracking::ResetActiveMap (Tracking.cc:2857) — drop the active
+        map's KFs/MPs and restart initialization in place."""
+        m = self.map
+        with m.lock:
+            for k in m.valid_kf_ids():
+                for slot in np.nonzero(m.kf_mp[k] >= 0)[0]:
+                    mp = int(m.kf_mp[k, slot])
+                    if m.mp_valid[mp]:
+                        m.set_bad_point(mp)
+                m.kf_valid[k] = False
+        self._reset_tracker_state()
+
+    def reset(self):
+        """ref: Tracking::Reset (Tracking.cc:2792) — clear every Atlas map
+        and all tracker state."""
+        m = self.map
+        with m.lock:
+            for k in m.valid_kf_ids(all_maps=True):
+                m.kf_valid[k] = False
+            m.mp_valid[: m.n_mp] = False
+            m.create_new_map()
+            m.map_version += 1
+        self._reset_tracker_state()
+        self.last_frame = None
+        self.trajectory = []
+        self.frame_id = 0
+
+    def _reset_tracker_state(self):
+        self.state = State.NO_IMAGES_YET
+        self.ref_kf = -1
+        self.last_kf = -1
+        self.frames_since_kf = 0
+
+    def _track_motion_model(self, frame: Frame, R0, t0):
+        """ref: TrackWithMotionModel (Tracking.cc:1879) — project the last
+        frame's map points from the predicted pose. In localization mode the
+        last frame's depth spawns TEMPORARY visual-odometry points for its
+        unmatched features (ref: UpdateLastFrame, Tracking.cc:1249-1270)."""
+        cfg = self.cfg.tracking
+        last = self.last_frame
+        last_mp = np.array(
+            [self.map.resolve_replaced(int(j)) if j >= 0 else -1 for j in last.mp], np.int32)
+        sel = np.nonzero(last_mp >= 0)[0]
+        n_real = len(sel)
+        vo_X = np.zeros((0, 3))
+        if self.only_tracking and last.feats.depth is not None and last.R is not None:
+            d = last.feats.depth
+            free = (last_mp < 0) & last.feats.valid & (d > 0)
+            cand = np.nonzero(free)[0]
+            if len(cand):
+                order = cand[np.argsort(d[cand])]
+                th = self.cfg.th_depth * (self.bf / self.camera.fx) if self.bf > 0 else np.inf
+                close = order[d[order] < th][:100]
+                if len(close) < 20:  # spawn at least some (ref 100 cap)
+                    close = order[:100]
+                if len(close):
+                    nx = last.feats.norm_xy[close]
+                    zc = d[close]
+                    Xc = np.stack([nx[:, 0] * zc, nx[:, 1] * zc, zc], 1)
+                    Rwc = last.R.T
+                    vo_X = Xc @ Rwc.T + (-Rwc @ last.t)[None]
+                    sel = np.concatenate([sel, close])
+        if len(sel) < 10:
+            return False
+        mp_ids = last_mp[sel]  # -1 rows are VO points
+        Xall = np.concatenate([self.map.mp_pos[last_mp[sel[:n_real]]], vo_X], 0)
+        uv, z, _ = self._project(R0, t0, Xall)
+        radius = cfg.motion_model_radius * self.sf[last.feats.octave[sel]]
+        for th_mult in (1.0, 2.0):  # widen once if too few (ref :1928)
+            mask = (
+                M.window_mask_np(uv, frame.feats.xy, radius * th_mult)
+                & (z > 0)[:, None]
+                & frame.feats.valid[None, :]
+                & M.level_mask_np(last.feats.octave[sel], frame.feats.octave, 1, 1)
+            )
+            midx, _ = self._match(
+                last.feats.bits[sel], frame.feats.bits, mask, max_dist=M.TH_HIGH,
+                ang_a=last.feats.angle[sel], ang_b=frame.feats.angle)
+            if (midx >= 0).sum() >= cfg.min_matches_motion:
+                break
+        if (midx >= 0).sum() < cfg.min_matches_motion:
+            return False
+        frame.mp = np.full(frame.feats.n, -1, np.int32)
+        rows = np.nonzero(midx >= 0)[0]
+        real = rows[mp_ids[rows] >= 0]
+        frame.mp[midx[real]] = mp_ids[real]
+        # per-feature positions: map points AND temporary VO points
+        X_feat = np.zeros((frame.feats.n, 3))
+        vmask = np.zeros(frame.feats.n, bool)
+        X_feat[midx[rows]] = Xall[rows]
+        vmask[midx[rows]] = True
+        Rf, tf, inl, osel = self._pose_opt(R0, t0, frame, frame.mp, X_by_feat=X_feat,
+                                           valid_by_feat=vmask)
+        frame.R, frame.t = Rf, tf
+        frame.mp[osel[~inl]] = -1
+        self.n_inliers = int(inl.sum())
+        if self.only_tracking:
+            # ref: mbVO = few MAP matches — the frame rides VO points
+            self.vo_mode = int((frame.mp[osel[inl]] >= 0).sum()) < 10
+        return self.n_inliers >= cfg.min_inliers_motion
+
+    def _track_reference_kf(self, frame: Frame, R0=None, t0=None):
+        """ref: TrackReferenceKeyFrame (Tracking.cc:1750) — descriptor match
+        against the reference KF's map-point features, window-FREE; R0/t0
+        only initialize the optimizer."""
+        cfg = self.cfg.tracking
+        m = self.map
+        kf = self.ref_kf
+        if kf < 0:
+            return False
+        kf_mp = m.kf_mp[kf].copy()
+        for i, j in enumerate(kf_mp):
+            if j >= 0:
+                kf_mp[i] = m.resolve_replaced(int(j))
+        sel = np.nonzero(kf_mp >= 0)[0]
+        if len(sel) < 10:
+            return False
+        fk = m.kf_feats[kf]
+        mask = fk.valid[sel][:, None] & frame.feats.valid[None, :]
+        midx, _ = self._match(
+            fk.bits[sel], frame.feats.bits, mask, max_dist=M.TH_LOW,
+            nn_ratio=cfg.nn_ratio_ref_kf, ang_a=fk.angle[sel], ang_b=frame.feats.angle)
+        if (midx >= 0).sum() < 15:
+            return False
+        frame.mp = np.full(frame.feats.n, -1, np.int32)
+        ok = midx >= 0
+        frame.mp[midx[ok]] = kf_mp[sel[ok]]
+        if R0 is None:
+            R0 = self.last_frame.R
+            t0 = self.last_frame.t
+        Rf, tf, inl, osel = self._pose_opt(R0, t0, frame, frame.mp)
+        frame.R, frame.t = Rf, tf
+        frame.mp[osel[~inl]] = -1
+        self.n_inliers = int(inl.sum())
+        return self.n_inliers >= cfg.min_inliers_motion
+
+    def _relocalize(self, frame: Frame):
+        """Relocalization against the reference-KF neighbourhood (ref:
+        Tracking::Relocalization Tracking.cc:2626; the BoW candidates + PnP
+        RANSAC route waits for place recognition)."""
+        if self.ref_kf < 0:
+            self.state = State.LOST
+            return False
+        for kf in [self.ref_kf] + self.map.best_covisible(self.ref_kf, 5):
+            self.ref_kf = kf
+            if self._track_reference_kf(frame):
+                return True
+        return False
+
+    # ------------------------------------------------------------- local map
+    def _track_local_map(self, frame: Frame):
+        cfg = self.cfg.tracking
+        m = self.map
+        # K1: KFs observing current map points; new ref_kf = max overlap
+        counts: dict[int, int] = {}
+        for j in frame.mp[frame.mp >= 0]:
+            for kf in m.mp_obs[int(j)]:
+                counts[kf] = counts.get(kf, 0) + 1
+        if not counts:
+            # no associations yet: the last keyframe's neighbourhood (ref
+            # UpdateLocalKeyFrames last-KF fallback, Tracking.cc:2526)
+            anchor = self.last_kf if (self.last_kf >= 0 and m.kf_valid[self.last_kf]) \
+                else self.ref_kf
+            if anchor < 0 or not m.kf_valid[anchor]:
+                return False
+            k1 = [anchor]
+        else:
+            k1 = sorted(counts, key=counts.get, reverse=True)
+        self.ref_kf = k1[0]
+        local_kfs = list(k1)
+        seen = set(local_kfs)
+        for kf in k1[:10]:  # K2: neighbours (ref caps the local window at 80)
+            for o in m.best_covisible(kf, 10):
+                if o not in seen and len(local_kfs) < 80:
+                    seen.add(o)
+                    local_kfs.append(o)
+        ids = np.unique(m.kf_mp[local_kfs])
+        ids = ids[ids >= 0]
+        ids = ids[m.mp_valid[ids]]
+        min_req = self._min_req()
+
+        def search_and_opt(radius_mult: float, count_stats: bool):
+            """One projection-search + pose-opt pass at the frame's current
+            pose; fills only FREE slots of frame.mp. Returns (inl, osel)."""
+            cur_set = set(int(j) for j in frame.mp[frame.mp >= 0])
+            cand = np.array([j for j in ids if int(j) not in cur_set], np.int32)
+            if len(cand):
+                X = m.mp_pos[cand]
+                uv, z, _ = self._project(frame.R, frame.t, X)
+                Ow = -frame.R.T @ frame.t
+                vdir = X - Ow[None]
+                dist = np.linalg.norm(vdir, axis=1)
+                cosv = np.sum(vdir * m.mp_normal[cand], 1) / np.maximum(dist, 1e-9)
+                in_img = (
+                    (z > 0)
+                    & (uv[:, 0] >= 0) & (uv[:, 0] < self.camera.width)
+                    & (uv[:, 1] >= 0) & (uv[:, 1] < self.camera.height)
+                    & (dist >= 0.8 * m.mp_min_dist[cand])
+                    & (dist <= 1.2 * m.mp_max_dist[cand])
+                    & (cosv > 0.5)
+                )  # ref: Frame::isInFrustum (:483)
+                if count_stats:
+                    m.mp_visible[cand[in_img]] += 1
+                cand = cand[in_img]
+                uv = uv[in_img]
+                dist = dist[in_img]
+                cosv = cosv[in_img]
+            if len(cand):
+                pred = m.predict_scale(dist, cand)
+                radius = np.where(cosv > 0.998, cfg.local_map_radius_tight,
+                                  cfg.local_map_radius) * self.sf[pred] * radius_mult
+                free = frame.mp < 0  # only fill unmatched feature slots
+                mask = (
+                    M.window_mask_np(uv, frame.feats.xy, radius)
+                    & (frame.feats.valid & free)[None, :]
+                    & M.level_mask_np(pred, frame.feats.octave, 1, 0)
+                )
+                # ratio test only when best/second share a pyramid level
+                # (ref: SearchByProjection ORBmatcher.cc:130)
+                midx, _ = self._match(
+                    m.mp_bits[cand], frame.feats.bits, mask, max_dist=M.TH_HIGH,
+                    nn_ratio=cfg.nn_ratio_local, oct_b=frame.feats.octave,
+                    ratio_same_octave=True)
+                ok = midx >= 0
+                frame.mp[midx[ok]] = cand[ok]
+            Rf, tf, inl, osel = self._pose_opt(frame.R, frame.t, frame, frame.mp)
+            frame.R, frame.t = Rf, tf
+            self.n_inliers = int(inl.sum())
+            return inl, osel
+
+        # pass 1: inherited associations + local fill-in
+        inl, osel = search_and_opt(1.0, count_stats=False)
+        if self.n_inliers < 2 * min_req:
+            # weak: widen the window from the refined pose once (ref
+            # Tracking.cc:2377-2392)
+            frame.mp[osel[~inl]] = -1
+            inl, osel = search_and_opt(3.0, count_stats=False)
+        # full re-association from the whole local map, iterated until the
+        # pose stops moving (pruned inliers can return)
+        for it in range(3):
+            t_before = frame.t.copy()
+            frame.mp = np.full(frame.feats.n, -1, np.int32)
+            inl, osel = search_and_opt(1.0, count_stats=(it == 2))
+            if np.linalg.norm(frame.t - t_before) < 1e-4:
+                if it < 2:  # stats not counted yet this frame
+                    m.mp_visible[frame.mp[frame.mp >= 0]] += 1
+                break
+        m.mp_found[frame.mp[osel[inl]]] += 1
+        frame.mp[osel[~inl]] = -1
+        self.n_inliers = int(inl.sum())
+        if self.n_inliers >= min_req and self.only_tracking:
+            self.vo_mode = False  # back on the map (ref mbVO=false)
+        return self.n_inliers >= min_req
+
+    # -------------------------------------------------------------- keyframes
+    def _need_new_keyframe(self, frame: Frame):
+        """ref: NeedNewKeyFrame (Tracking.cc:2089) — c1a/c1b + c2, with the
+        reference KF's WELL-OBSERVED points as the baseline (ref
+        TrackedMapPoints(nMinObs=3), Tracking.cc:2113) and the stereo
+        thRefRatio of 0.75 (:2182)."""
+        cfg = self.cfg.tracking
+        m = self.map
+        if self.ref_kf < 0:
+            return False
+        min_obs = 3 if len(m.valid_kf_ids()) > 2 else 1
+        mp = m.kf_mp[self.ref_kf]
+        mp = mp[mp >= 0]
+        ref_matches = int(sum(
+            1 for j in mp if m.mp_valid[int(j)] and len(m.mp_obs[int(j)]) >= min_obs))
+        ratio = min(cfg.kf_ref_ratio, 0.75)
+        c1a = self.frames_since_kf >= cfg.max_frames_between_kf
+        c1b = self.frames_since_kf >= cfg.min_frames_between_kf
+        c2 = self.n_inliers < ref_matches * ratio and self.n_inliers > cfg.min_kf_inliers
+        return (c1a or (c1b and c2)) and self.n_inliers > cfg.min_kf_inliers
+
+    def _create_keyframe(self, frame: Frame):
+        if isinstance(frame.feats, DeviceFeatures):
+            # KF features live in the host map store (matching,
+            # triangulation read them): materialize once here
+            with T.stage("kf.materialize"):
+                frame.feats = frame.feats.materialize()
+        with T.stage("kf.create"):
+            m = self.map
+            kf = m.add_keyframe(frame.R, frame.t, frame.feats, frame.time, frame.frame_id,
+                                mp_assign=frame.mp)
+            self._spawn_stereo_points(kf, frame, max_new=100)
+            m.update_connections(kf)
+            self.ref_kf = kf
+            self.last_kf = kf
+            self.frames_since_kf = 0
+            if self.local_mapper is not None:
+                self.local_mapper.on_new_keyframe(kf)
+                # poses may have moved during local BA: refresh the frame
+                frame.R = m.kf_R[kf].copy()
+                frame.t = m.kf_t[kf].copy()
+        return kf

@@ -1,0 +1,92 @@
+"""Matrix-free Schur-complement solve via preconditioned CG (port of
+`pcg_solve` and its helpers from tpuslam/solve/schur_cg.py; ref: g2o's
+BlockSolver_6_3 + sparse Cholesky, Thirdparty/g2o core/block_solver.h).
+
+The reduced camera system S = Hpp - W Hll^-1 W^T is never materialized:
+
+    (S v)[k] = Hpp_d[k] v[k] - sum_{o: kf(o)=k} W_o Hll_inv[pt(o)] y[pt(o)],
+    y[j]     = sum_{o: pt(o)=j} W_o^T v[kf(o)],
+
+two scatter-adds over the observations per matvec, O(O) work. The
+preconditioner is the exact block-Jacobi of S. The JAX version's
+`lax.while_loop` is a masked loop over the fixed iteration count: once
+the residual falls below the tolerance the state stops changing, so the
+result is the same and the solve never waits on the device. The 15-dim
+visual-inertial variant waits for the IMU slice.
+"""
+
+from __future__ import annotations
+
+import torch
+
+
+def _scatter_add(n, index, src):
+    out = torch.zeros((n,) + src.shape[1:], dtype=src.dtype, device=src.device)
+    return out.index_add_(0, index, src)
+
+
+def _inv_blocks(A):
+    """Batched SPD inverse via Cholesky."""
+    L, _ = torch.linalg.cholesky_ex(A)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device).expand(A.shape)
+    return torch.cholesky_solve(eye, L)
+
+
+def schur_matvec(v, Hpp_d, Hll_inv, Wo, obs_kf, obs_pt):
+    """(S v) for v [K,6]. Wo [O,6,3] (weight-scaled), Hll_inv [P,3,3],
+    Hpp_d [K,6,6]."""
+    K = Hpp_d.shape[0]
+    P = Hll_inv.shape[0]
+    y = _scatter_add(P, obs_pt, torch.einsum("oij,oi->oj", Wo, v[obs_kf]))
+    z = torch.einsum("pij,pj->pi", Hll_inv, y)
+    out = _scatter_add(K, obs_kf, torch.einsum("oij,oj->oi", Wo, z[obs_pt]))
+    return torch.einsum("kij,kj->ki", Hpp_d, v) - out
+
+
+def schur_diag(Hpp_d, Hll_inv, Wo, obs_kf, obs_pt):
+    """Exact 6x6 diagonal blocks of S: Hpp_d[k] - sum_{o in k} W_o Hll_inv W_o^T."""
+    M = torch.einsum("oij,ojk,olk->oil", Wo, Hll_inv[obs_pt], Wo)
+    return Hpp_d - _scatter_add(Hpp_d.shape[0], obs_kf, M)
+
+
+def pcg_solve(b, Hpp_d, Hll_inv, Wo, obs_kf, obs_pt, free6, n_iters: int = 30,
+              tol: float = 1e-8):
+    """Block-Jacobi preconditioned CG on S dx = b. b [K,6]; free6 [K,6]
+    bool (False rows pinned to zero: fixed poses). Returns dx [K,6]."""
+    dtype = b.dtype
+    D = schur_diag(Hpp_d, Hll_inv, Wo, obs_kf, obs_pt)
+    fmask = free6.to(dtype)
+    eye6 = torch.eye(6, dtype=dtype, device=b.device)
+    # pin fixed rows: identity blocks, zero rhs (keeps D SPD)
+    D = D * fmask[:, :, None] * fmask[:, None, :] + eye6 * (1.0 - fmask)[:, None, :] * eye6
+    D = D + 1e-9 * eye6
+    Dinv = _inv_blocks(D)
+    b = b * fmask
+
+    def A(v):
+        return schur_matvec(v * fmask, Hpp_d, Hll_inv, Wo, obs_kf, obs_pt) * fmask
+
+    def M(r):
+        return torch.einsum("kij,kj->ki", Dinv, r) * fmask
+
+    x = torch.zeros_like(b)
+    r = b
+    p = M(r)
+    rz = (r * p).sum()
+    bnorm = torch.clamp((b * b).sum(), min=1e-30)
+    for _ in range(n_iters):
+        active = (r * r).sum() > tol * bnorm
+        Ap = A(p)
+        denom = (p * Ap).sum()
+        alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, 0.0)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = M(r_n)
+        rz_n = (r_n * z).sum()
+        beta = torch.where(torch.abs(rz) > 1e-30, rz_n / rz, 0.0)
+        p_n = z + beta * p
+        x = torch.where(active, x_n, x)
+        r = torch.where(active, r_n, r)
+        p = torch.where(active, p_n, p)
+        rz = torch.where(active, rz_n, rz)
+    return x
