@@ -6,7 +6,7 @@ imports no jax, so it also runs on a host that has none:
 
 Tolerances: the patch gather is a copy (bitwise); the pose LM sums in
 another order than the plain version (R 1e-4, t 1e-3, inliers >= 0.99);
-the fused step as in tests/test_torch_track_step.py.
+the fused step, stereo and mono, as in tests/test_torch_track_step.py.
 """
 
 import numpy as np
@@ -116,6 +116,41 @@ def test_fused_step_kernels_match_plain(cuda, monkeypatch):
     assert (out["pose"][9:12] - ref["pose"][9:12]).abs().max() <= 5e-3
     assert (out["assoc"] == ref["assoc"]).float().mean() >= 0.95
     assert int(out["pose"][12]) >= 100
+
+
+def test_mono_fused_step_kernels_match_plain(cuda, monkeypatch):
+    """The mono step (one image: 8 patch launches, 4 pose LMs with every
+    row monocular) through the kernels against its plain path, chained
+    over two frames."""
+    seq = SyntheticSequence(n_frames=3, fps=20, speed=0.5, baseline=0.11)
+    u8 = lambda im: np.clip(np.round(im), 0, 255).astype(np.uint8)  # noqa: E731
+    cam = Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240)
+    st = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2,
+                        seq.fx * seq.baseline, True, device=cuda)
+    f0 = st.extract(torch.tensor(np.stack([u8(seq.frame(0)), u8(seq.frame(0, right=True))]),
+                                 device=cuda))
+    f0["und_xy"] = f0["xy"]
+    local = stereo_local_map({k: v.cpu().numpy() for k, v in f0.items()}, seq.fx, seq.fy,
+                             seq.cx, seq.cy, st.sf.cpu().numpy(), p_base=512)
+    mono = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2, 0.0, False,
+                          device=cuda)
+    pose = np.r_[np.eye(3).ravel(), np.zeros(4)].astype(np.float32)
+    for i in (1, 2):
+        inp = step_inputs_from_numpy(u8(seq.frame(i))[None], *local, pose, np.float32([60]),
+                                     cuda)
+        n_patch, n_pose = patch_cuda.counter.launches, pose_opt_cuda.counter.launches
+        out = mono(*inp)
+        assert patch_cuda.counter.launches - n_patch == 8
+        assert pose_opt_cuda.counter.launches - n_pose == 4
+        with monkeypatch.context() as mp:
+            mp.setattr(orb, "extract_patches", patch_cuda.extract_patches_plain)
+            mp.setattr(track_device, "pose_optimize_fused", pose_opt_cuda.pose_optimize_plain)
+            ref = mono(*inp)
+        assert (out["pose"][:9] - ref["pose"][:9]).abs().max() <= 5e-4
+        assert (out["pose"][9:12] - ref["pose"][9:12]).abs().max() <= 5e-3
+        assert (out["assoc"] == ref["assoc"]).float().mean() >= 0.95
+        assert int(out["pose"][12]) >= 100
+        pose = out["pose"].cpu().numpy()
 
 
 def test_host_pose_route_matches_plain(cuda):

@@ -10,7 +10,8 @@
     ATE < 5 cm, Horn scale within 3 % of 1), and the trajectory savers.
   * bench.py's configuration (async mapping + pipelined tracking): only
     the state after flush() is asserted, not quality during the race.
-  * The sensors and options of later ROADMAP items raise.
+  * The sensors and options of later ROADMAP items raise (mono, RGB-D and
+    the vocabulary are ported: tests/test_torch_{mono,rgbd,loop_run}.py).
 """
 
 import numpy as np
@@ -156,21 +157,23 @@ def test_modes_and_resets(seq20):
     assert slam.tracker.trajectory == [] and slam.map.mp_valid.sum() == 0
 
 
-@pytest.mark.parametrize("what", ["MONOCULAR", "RGBD", "IMU_STEREO", "vocab", "camera2",
-                                  "checkpoint", "track_rgbd"])
+@pytest.mark.parametrize("what", ["IMU_MONOCULAR", "imu_calib", "IMU_STEREO", "Tlr", "camera2",
+                                  "checkpoint", "load_checkpoint", "imu"])
 def test_unported_parts_raise(what):
     cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
     if what in Sensor.__members__:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             System(cam, sensor=Sensor[what])
         return
-    if what in ("vocab", "camera2"):
+    if what in ("imu_calib", "Tlr", "camera2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             System(cam, **{what: object()})
         return
-    slam = System(cam)
+    slam = System(cam, sensor=Sensor.MONOCULAR if what == "imu" else Sensor.STEREO)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "checkpoint":
             slam.save_checkpoint("x")
+        elif what == "load_checkpoint":
+            slam.load_checkpoint("x")
         else:
-            slam.track_rgbd(np.zeros((240, 376)), np.zeros((240, 376)), 0.0)
+            slam.track_monocular(np.zeros((240, 376)), 0.0, imu=np.zeros((3, 7)))

@@ -195,14 +195,30 @@ for i in range(3):
     slam.track_stereo(seq.frame(i), seq.frame(i, right=True), i / seq.fps)
 assert slam.get_tracking_state().name == "OK" and len(slam.trajectory_tum()) == 3
 assert len(slam.map.valid_kf_ids()) >= 2 and slam.map.map_version >= 1
+# mono with a vocabulary (two-view init, loop closer) and an RGB-D frame
+from tpuslam_torch.engine.system import Sensor
+from tpuslam_torch.place import train_vocabulary
+rs = np.random.RandomState(0)
+vocab = train_vocabulary((rs.rand(300, 256) > 0.5).astype(np.uint8), k=4, L=2, iters=2)
+mono = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
+              SlamConfig(orb=OrbConfig(n_features=500)), sensor=Sensor.MONOCULAR, vocab=vocab)
+seq_m = SyntheticSequence(n_frames=4, fps=10, speed=0.5)
+for i in range(4):
+    mono.track_monocular(seq_m.frame(i), i / 10)
+assert mono.get_tracking_state().name == "OK" and len(mono.loop_closer.kf_bow) >= 2
+rgbd = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
+              SlamConfig(orb=OrbConfig(n_features=500),
+                         tracking=TrackingConfig(min_stereo_init_features=200)),
+              sensor=Sensor.RGBD, bf=seq.fx * 0.08)
+assert rgbd.track_rgbd(*seq_m.frame_rgbd(0), 0.0) is not None
 assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_without_jax():
-    """The port imports and runs (the fused step, and its System with
-    mapping) with jax blocked."""
+    """The port imports every module and runs (the fused step; the stereo,
+    mono + vocabulary and RGB-D Systems) with jax blocked."""
     res = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -16,7 +16,7 @@ import torch
 
 from ..map.store import FrameFeatures
 from ..ops.orb import OrbExtractor
-from ..ops.stereo import sad_refine_pyramid, stereo_match
+from ..ops.stereo import rgbd_to_stereo, sad_refine_pyramid, stereo_match
 from .config import OrbConfig
 
 
@@ -68,7 +68,18 @@ class Frontend:
         f.u_right = np.where(okn, u_rn, -1.0)
         return f
 
+    def process_rgbd(self, img, depth_map, depth_factor: float = 1.0) -> FrameFeatures:
+        """RGB-D frame (ref: RGB-D Frame ctor Frame.cc:192 +
+        ComputeStereoFromRGBD :983): per-feature depth from the depth map
+        and a virtual right coordinate from bf."""
+        f = self.process(img)
+        z, u_r = rgbd_to_stereo(f.xy, np.asarray(depth_map), self.bf, depth_factor)
+        f.depth = np.where(z > 0, z, -1.0)
+        f.u_right = np.where(z > 0, u_r, -1.0)
+        return f
+
     def process(self, img) -> FrameFeatures:
+        """Monocular frame (ref: monocular Frame ctor Frame.cc:275)."""
         return self._features_from(self.extractor(self._image(img)))
 
     def _features_from(self, out) -> FrameFeatures:

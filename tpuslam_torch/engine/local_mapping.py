@@ -1,5 +1,5 @@
 """Local mapping: triangulation, fusion, local BA, culling (port of
-tpuslam/engine/local_mapping.py, visual only).
+tpuslam/engine/local_mapping.py, visual mono / stereo / RGB-D).
 
 The reference's LocalMapping thread (src/LocalMapping.cc): the mapper
 runs once per keyframe, synchronously from the tracker or on the worker
@@ -17,7 +17,8 @@ reparents a culled keyframe's children to its saved spanning-tree parent
 (tpuslam points them at the recovery anchor, which can make a child its
 own parent), and `_create_new_points` caps the triangulation neighbours
 at MAX_TARGETS (tpuslam passes n_triangulate_neighbors uncapped into a
-kernel padded to 32). The IMU stages wait for the inertial slice.
+kernel padded to 32). A loop closer, when wired, is told of every culled
+keyframe. The IMU stages wait for ROADMAP item "the IMU stack".
 """
 
 from __future__ import annotations
@@ -41,13 +42,16 @@ def _no_lock():
 class LocalMapper:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, bf: float = 0.0,
                  device="cpu", dtype=torch.float32):
-        """Stereo mapping (bf > 0). device: where the mapping kernels and
-        local BA run; dtype: the BA's float type (f32 on the card)."""
+        """bf > 0 for stereo / RGB-D, 0 for a monocular map (its scale is
+        anchored by nothing). device: where the mapping kernels and local
+        BA run; dtype: the BA's float type (f32 on the card)."""
         self.camera = camera
         self.camspec = camera.spec
         self.cfg = cfg
         self.map = slam_map
         self.bf = bf
+        # set by System when loop closing is wired: told of culled KFs
+        self.loop_closer = None
         self.device = torch.device(device)
         self.dtype = dtype
         self.recent_points: list[tuple[int, int]] = []  # (mp, created_at_kf)
@@ -87,10 +91,16 @@ class LocalMapper:
             with T.stage("fuse"):
                 self._fuse_neighbors(kf, hold=hold)
             with T.stage("local_ba"):
-                # with the scale anchored by stereo depth, a queued KF
-                # defers local BA (ref LocalMapping::Run :103,283)
+                # sensor-aware interrupt discipline: with the scale anchored
+                # by stereo / RGB-D depth a queued KF defers local BA (ref
+                # LocalMapping::Run :103,283); on a scale-free mono map the
+                # robust first phase always runs and only the second phase
+                # yields to the queue (window_ba's abort_check), since a
+                # full skip starves BA and lets the mono scale drift. The
+                # IMU arm of "anchored" waits for the IMU stack.
                 backlog = self.abort_check is not None and self.abort_check()
-                if not (backlog and self.bf > 0):
+                scale_anchored = self.bf > 0
+                if not (backlog and scale_anchored):
                     self._local_ba(kf, hold=hold)
             with T.stage("kf_culling"), hold():
                 self._cull_keyframes(kf)
@@ -134,6 +144,8 @@ class LocalMapper:
         m = self.map
         if self._devk is not None:
             self._devk.cache.drop(cand)
+        if self.loop_closer is not None:
+            self.loop_closer.on_kf_erased(cand)
         # trajectory-recovery anchor: the strongest surviving covisible KF
         # (it moves with the culled KF's neighbourhood under later BA)
         anchor = int(m.kf_parent[cand])

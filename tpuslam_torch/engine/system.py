@@ -1,13 +1,15 @@
 """System facade — the public API (port of tpuslam/engine/system.py,
-stereo).
+visual sensors).
 
 Mirrors the reference System (include/System.h:85-189): the constructor
-wires the tracker and the local mapper (synchronous, or behind
-tpuslam.parallel.async_mapping.AsyncMapper's worker thread), TrackStereo,
-state queries, localization mode, resets, Shutdown and the trajectory
-savers. Tracking and mapping run on one explicit device; the map is host
-state. Both threads issue device work on the default stream, so their
-work serialises there.
+wires the tracker, the local mapper and, with a vocabulary, the loop
+closer (synchronous, or behind tpuslam.parallel.async_mapping.
+AsyncMapper's worker thread), TrackMonocular / TrackStereo / TrackRGBD,
+state queries, localization mode, resets, Shutdown (which also joins a
+background global BA) and the trajectory savers. Tracking, mapping and
+loop closing run on one explicit device; the map is host state. The
+threads issue device work on the default stream, so their work
+serialises there.
 
 The sensors and options of later ROADMAP items raise NotImplementedError
 naming the item; nothing falls back silently.
@@ -26,6 +28,7 @@ from ..core import lie
 from ..map.store import SlamMap
 from .config import SlamConfig
 from .local_mapping import LocalMapper
+from .loop_closing import LoopCloser
 from .tracking import Tracker
 
 
@@ -39,12 +42,9 @@ class Sensor(enum.Enum):
 
 # the ROADMAP item each unported sensor or option belongs to
 _WAITS = {
-    Sensor.MONOCULAR: "mono init and RGB-D",
-    Sensor.RGBD: "mono init and RGB-D",
     Sensor.IMU_MONOCULAR: "the IMU stack",
     Sensor.IMU_STEREO: "the IMU stack",
     "imu_calib": "the IMU stack",
-    "vocab": "relocalization with BoW, and loop closing",
     "camera2": "fisheye",
     "checkpoint": "tools",
 }
@@ -70,16 +70,22 @@ def _quat_rows(rows):
 
 
 class System:
-    def __init__(self, camera, cfg: SlamConfig | None = None, sensor: Sensor = Sensor.STEREO,
-                 imu_calib=None, vocab=None, bf: float = 0.0, async_mapping: bool = False,
-                 camera2=None, Tlr=None, device="cpu"):
-        """bf: fx * baseline in pixels (ref Camera.bf). async_mapping: run
-        local mapping on a worker thread (the reference's LocalMapping
-        thread). device: where extraction, matching, the pose solves, the
-        mapping kernels and BA run ("cuda" for the card)."""
-        if sensor != Sensor.STEREO:
+    def __init__(self, camera, cfg: SlamConfig | None = None,
+                 sensor: Sensor = Sensor.STEREO, imu_calib=None, vocab=None,
+                 bf: float = 0.0, async_mapping: bool = False, camera2=None, Tlr=None,
+                 device="cpu", dtype=torch.float32):
+        """vocab: a place.BinaryVocabulary; enables loop closing and BoW
+        relocalization (ref: System ctor loads ORBvoc, System.cc:85).
+        bf: fx * baseline in pixels (ref Camera.bf) for stereo / RGB-D.
+        async_mapping: run local mapping and loop closing on a worker
+        thread (the reference's LocalMapping / LoopClosing threads).
+        device: where extraction, matching, the solvers, the mapping
+        kernels and BA run ("cuda" for the card); dtype: the solvers' float
+        type (f32, as on the card). The default sensor is STEREO, as the
+        port's first System was (tpuslam defaults to MONOCULAR)."""
+        if sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
             raise _not_ported(f"sensor {sensor.name}", sensor)
-        for name, value in (("imu_calib", imu_calib), ("vocab", vocab), ("camera2", camera2)):
+        for name, value in (("imu_calib", imu_calib), ("camera2", camera2)):
             if value is not None:
                 raise _not_ported(name)
         if Tlr is not None:
@@ -90,21 +96,55 @@ class System:
         self.device = torch.device(device)
         self.map = SlamMap(self.cfg.orb.n_features, scale=self.cfg.orb.scale,
                            n_levels=self.cfg.orb.n_levels)
-        self.local_mapper = LocalMapper(camera, self.cfg, self.map, bf=bf, device=self.device)
+        mono = sensor == Sensor.MONOCULAR
+        self.local_mapper = LocalMapper(camera, self.cfg, self.map, bf=bf,
+                                        device=self.device, dtype=dtype)
+        self.loop_closer = None
+        if vocab is not None:
+            self.loop_closer = LoopCloser(camera, self.cfg, self.map, vocab,
+                                          fix_scale=not mono, local_mapper=self.local_mapper,
+                                          device=self.device, dtype=dtype)
+            self.local_mapper.loop_closer = self.loop_closer
         self.async_mapper = None
         mapper_for_tracker = self.local_mapper
+        closer_for_tracker = self.loop_closer
         if async_mapping:
-            self.async_mapper = AsyncMapper(self.local_mapper, None, self.map.lock)
+            self.async_mapper = AsyncMapper(self.local_mapper, self.loop_closer, self.map.lock)
             mapper_for_tracker = self.async_mapper
+            closer_for_tracker = None  # the worker thread runs it
         self.tracker = Tracker(camera, self.cfg, self.map, mapper_for_tracker,
-                               sensor="stereo", bf=bf, device=self.device)
+                               sensor="mono" if mono else "stereo", bf=bf,
+                               loop_closer=closer_for_tracker, device=self.device, dtype=dtype)
 
     # ------------------------------------------------------------------ API
+    def _pose(self, frame):
+        if frame.R is None:
+            return None
+        T = np.eye(4)
+        T[:3, :3] = frame.R
+        T[:3, 3] = frame.t
+        return T
+
+    def _check_sensor(self, entry, *sensors):
+        if self.sensor not in sensors:
+            raise ValueError(f"{entry} on a {self.sensor.name} System")
+
     def track_monocular(self, img, timestamp: float, imu=None):
-        raise _not_ported("track_monocular", Sensor.MONOCULAR)
+        """Returns Tcw 4x4 (None before initialization); ref:
+        System::TrackMonocular (System.cc:352)."""
+        if imu is not None:
+            raise _not_ported("imu", "imu_calib")
+        self._check_sensor("track_monocular", Sensor.MONOCULAR)
+        return self._pose(self.tracker.track(img, timestamp))
 
     def track_rgbd(self, img, depth, timestamp: float, imu=None):
-        raise _not_ported("track_rgbd", Sensor.RGBD)
+        """ref: System::TrackRGBD (System.cc:294); depth in the units that
+        SlamConfig.depth_map_factor scales to meters. RGB-D frames take the
+        host tracking path."""
+        if imu is not None:
+            raise _not_ported("imu", "imu_calib")
+        self._check_sensor("track_rgbd", Sensor.RGBD)
+        return self._pose(self.tracker.track(img, timestamp, depth=depth))
 
     def track_stereo(self, img_left, img_right, timestamp: float, imu=None):
         """Returns Tcw 4x4 (None before initialization); ref:
@@ -114,13 +154,8 @@ class System:
         frame completes it, or at shutdown()."""
         if imu is not None:
             raise _not_ported("imu", "imu_calib")
-        frame = self.tracker.track(img_left, timestamp, img_right=img_right)
-        if frame.R is None:
-            return None
-        T = np.eye(4)
-        T[:3, :3] = frame.R
-        T[:3, 3] = frame.t
-        return T
+        self._check_sensor("track_stereo", Sensor.STEREO)
+        return self._pose(self.tracker.track(img_left, timestamp, img_right=img_right))
 
     def get_tracking_state(self):
         return self.tracker.state
@@ -166,12 +201,15 @@ class System:
 
     def shutdown(self):
         """ref: System::Shutdown (System.cc:487) — settle the tracking
-        pipeline and join the mapping worker. Worker errors stay in
-        `async_mapper.errors` (AsyncMapper.flush raises them)."""
+        pipeline, join the mapping worker and the background global BA.
+        Worker errors stay in `async_mapper.errors` (AsyncMapper.flush
+        raises them)."""
         self.tracker._flush_pipeline()
         self.tracker.last_frame = self.tracker._last_completed or self.tracker.last_frame
         if self.async_mapper is not None:
             self.async_mapper.shutdown()
+        if self.loop_closer is not None:
+            self.loop_closer.wait_gba()
 
     # ------------------------------------------------------------ trajectory
     def _ref_pose(self, ref_kf: int):

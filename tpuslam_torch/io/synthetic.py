@@ -6,8 +6,9 @@ box whose five faces carry procedural textures; rendering is exact
 perspective projection with bilinear texture sampling. For the same seed
 and parameters the frames are bitwise equal to the JAX package's.
 
-Ported: the textures, the room, the trajectory, the pinhole renderer and
-`SyntheticSequence.frame` / `gt_pose_cw`. Not ported: the fisheye
+Ported: the textures, the room, the trajectory, the pinhole renderer with
+its exact depth output, and `SyntheticSequence.frame` / `frame_rgbd` /
+`timestamps` / `gt_pose_cw`. Not ported: the fisheye
 (camera.unproject) rendering branch, the IMU samples with the trajectory
 derivatives they need, and the on-disk render cache.
 """
@@ -192,8 +193,11 @@ class Trajectory:
         return Rcw, -Rcw @ p
 
 
-def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy):
-    """Exact pinhole ray-cast of the textured room -> [H,W] f32 image."""
+def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy, return_depth=False):
+    """Exact pinhole ray-cast of the textured room -> [H,W] f32 image.
+    return_depth: also return the exact per-pixel camera-frame z (the ray
+    parameter equals z for z-normalized rays; 0 = no hit), as a perfect
+    depth sensor would (the RGB-D path)."""
     ys, xs = np.mgrid[0:height, 0:width]
     rays_c = np.stack(
         [(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, np.float64)], -1
@@ -234,6 +238,9 @@ def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy):
         )
         img = np.where(inside, val, img)
         best_t = np.where(inside, t, best_t)
+    if return_depth:
+        z = best_t * rays_c[..., 2]
+        return img, np.where(np.isfinite(best_t), z, 0.0).astype(np.float32)
     return img
 
 
@@ -260,6 +267,9 @@ class SyntheticSequence:
             Trl[:3, 3] = [-baseline, 0.0, 0.0]
         self.Trl = np.asarray(Trl, np.float64)
 
+    def timestamps(self):
+        return np.arange(self.n_frames) / self.fps
+
     def gt_pose_cw(self, t):
         return self.traj.pose_cw(t)
 
@@ -271,3 +281,10 @@ class SyntheticSequence:
             Rcw, tcw = R_rl @ Rcw, R_rl @ tcw + t_rl
         return render(self.planes, Rcw, tcw, self.height, self.width,
                       self.fx, self.fy, self.cx, self.cy)
+
+    def frame_rgbd(self, i):
+        """(image, depth) for the RGB-D path; depth is the renderer's exact
+        camera-frame z."""
+        Rcw, tcw = self.traj.pose_cw(i / self.fps)
+        return render(self.planes, Rcw, tcw, self.height, self.width,
+                      self.fx, self.fy, self.cx, self.cy, return_depth=True)
