@@ -6,19 +6,29 @@ Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
 levels at scale 1.2, stereo, monocular with loop closing, and RGB-D.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
-  1. build the CUDA kernels from tpuslam_torch/csrc;
+  1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
+     all at once) and the native map core; the pose LM kernel must show no
+     stack frame and no spill in ptxas's report, the native core must load;
   2. hold each kernel against its plain PyTorch version on the card, at
-     the shapes of the main paths (the pose LM at the fused step's N = 1024,
-     stereo and mono, at the host tracker's shapes: 700 observations padded
-     to 768, f64 inputs cast to f32, and at an RGB-D host frame's: 230
-     rows with depth-derived stereo residuals padded to 256), and time both
-     with CUDA events;
+     the shapes of the main paths: the patch gather over the 8 real levels
+     of a rendered image in one launch (bitwise, and against the unfold
+     library call); the pose LM at the fused step's N = 1024, stereo and
+     mono, at the host tracker's shapes (700 observations padded to 768,
+     f64 inputs cast to f32) and at an RGB-D host frame's (230 rows with
+     depth-derived stereo residuals padded to 256), bitwise repeatable.
+     Each is timed host-inclusive (CUDA events around the wrapper: `ms`,
+     as before the redesign) and device-only (a replayed CUDA graph of 100
+     launches: `device_ms`) beside its bound (bytes over the HBM rate, or
+     f32 operations over the f32 peak, counted from this run's inputs: the
+     windows the corners cover, the rows in use and the LM steps taken),
+     the plain version and, for the patch gather, the library call;
   3. the fused tracking step (tpuslam_torch.engine.track_device.
      FusedTrackStep) on a local map of P = 2048 rows built from frame 0:
      track frames 1..16 through the kernels (pose chained on the device,
      from frame 3 on under torch.cuda.set_sync_debug_mode("error")), check
      every pose against ground truth and against the same step run with
-     the plain versions, and check the launch counters;
+     the plain versions, and check the launch counters (2 patch-gather and
+     4 pose-LM launches per frame);
   4. the System (tpuslam_torch.engine.system.System.track_stereo) over 60
      frames, twice: (a) synchronous mapping and tracking, with frames
      40..49 on the host tracking path; (b) bench.py's configuration,
@@ -32,7 +42,7 @@ Phases, each raising on failure:
      frames 20..24 on the host tracking path: it must end OK, close at
      least one loop, end with one map, keep a scaled ATE under 5 % of the
      circumference, have no mapper errors, launch both kernels at least
-     8 / 4 times per fused dispatch and the pose LM on the host path; a
+     1 / 4 times per fused dispatch and the pose LM on the host path; a
      second-lap frame it never saw must relocalize through BoW + PnP on a
      first-lap keyframe, within 20 cm and 3 degrees of ground truth after
      the scaled alignment;
@@ -40,8 +50,9 @@ Phases, each raising on failure:
      OK, unscaled ATE under 5 cm, Horn scale within 3 % of 1, a pose-LM
      launch on every frame (RGB-D frames take the host path), patch-gather
      launches.
-The last lines are the kernels' JSON record, the nvidia-smi line and
-{"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
+The last lines are the kernels' JSON record (with launches by path and
+per frame), the nvidia-smi line and {"ok": true, "device": {...}}. Needs
+one CUDA card; fails without one.
 """
 
 import json
@@ -61,6 +72,22 @@ BASELINE = 0.11
 N_FRAMES = 17          # phase 3: frame 0 builds the map, 1..16 are tracked
 SYNC_CHECK_FROM = 3
 N_TIMED = 50
+N_GRAPH = 100          # launches per CUDA graph for the device-only times
+# H100 SXM peaks (NVIDIA's data sheet, at 700 W): HBM3 and f32 outside the
+# tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+# f32 operations of the pose LM as csrc/pose_opt.cu does them, structural
+# zeros (Ju[1], Jv[0], Jur[1]) left out. Per valid observation and
+# evaluation, its residual and chi2 (2 residuals mono, 3 stereo); per
+# observation in use, also its weight (1), Jacobian rows (mono 16, stereo
+# 23) and weighted H and g products (mono 90, stereo 135), and at a trial
+# pose its cost delta (2); per trial, the 6x6 solve and SE3 update. The
+# Huber branch, taken only above the chi2 threshold, is left out.
+OPS_RESIDUAL = {"mono": 32, "stereo": 37}
+OPS_IN_USE = {"mono": 1 + 16 + 90, "stereo": 1 + 23 + 135}
+OPS_DELTA = 2
+OPS_SOLVE = 460
 N_SYSTEM = 60          # phase 4: frames per System run
 HOST_PATH = range(40, 50)  # phase 4 (a): frames tracked by the host path
 WARMUP = 5             # phases 4-6: frames left out of the per-frame times
@@ -81,7 +108,9 @@ def nvidia_smi_line():
 
 
 def median_ms(fn, n=N_TIMED, warmup=3):
-    """Median of n timed calls of fn(), each between two CUDA events."""
+    """Host-inclusive time: median of n timed calls of fn(), each between
+    two CUDA events (what the host takes to enqueue, or the device to run,
+    whichever is longer)."""
     import torch
 
     for _ in range(warmup):
@@ -98,6 +127,78 @@ def median_ms(fn, n=N_TIMED, warmup=3):
     return float(np.median(times))
 
 
+def device_ms(fn, n=N_GRAPH, reps=5):
+    """Device-only time of one fn(): a CUDA graph captures n calls, and
+    the median over reps replays of the time between two events around a
+    replay, divided by n, is what the device takes without the host."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / n)
+    del graph
+    return float(np.median(times))
+
+
+def bound(n_bytes, n_flops):
+    """The least time (ms) the card could take: bytes over its memory rate
+    or f32 operations over its f32 peak (outside the tensor cores),
+    whichever is longer; and which of the two bounds it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes", "hbm") if t_bytes >= t_ops else (t_ops, "operations", "f32 compute")
+
+
+def pose_lm_ops(rounds, n_valid):
+    """f32 operations one pose LM solve needs, from the plain version's
+    per-round work (`rounds`) and the valid rows, {"mono": .., "stereo": ..}:
+    each round evaluates its start pose (re-classifying every valid row)
+    and one trial per LM step; the outputs take one more residual per
+    valid row."""
+    ops = sum(OPS_RESIDUAL[k] * n_valid[k] for k in n_valid)      # the outputs
+    for r in rounds:
+        in_use = sum(OPS_IN_USE[k] * r[k] for k in n_valid)
+        trial = sum((OPS_RESIDUAL[k] + OPS_DELTA) * r[k] for k in n_valid) + in_use
+        ops += sum(OPS_RESIDUAL[k] * n_valid[k] for k in n_valid) + in_use
+        ops += r["steps"] * (trial + OPS_SOLVE)
+    return ops
+
+
+def window_bytes(levels, corners, size):
+    """Bytes of level pixels that the size x size windows at `corners` cover
+    (their union on each level, read once)."""
+    import torch
+
+    total = 0
+    span = torch.arange(size, device=levels[0].device)
+    for lv, c in zip(levels, corners):
+        h, w = lv.shape
+        rows, cols = c[:, :1].long() + span, c[:, 1:].long() + span
+        inside = ((rows >= 0) & (rows < h))[:, :, None] & ((cols >= 0) & (cols < w))[:, None, :]
+        covered = torch.zeros(h * w, dtype=torch.bool, device=lv.device)
+        covered[(rows[:, :, None] * w + cols[:, None, :])[inside]] = True
+        total += int(covered.sum()) * lv.element_size()
+    return total
+
+
 def u8(im):
     return np.clip(np.round(im), 0, 255).astype(np.uint8)
 
@@ -107,8 +208,57 @@ def check(cond, msg):
         raise AssertionError(msg)
 
 
+def ptxas_report(log, kernel):
+    """(registers, stack, spill stores, spill loads) of `kernel` from the
+    build's `nvcc -Xptxas -v` output."""
+    lines = log.splitlines()
+    for i, line in enumerate(lines):
+        if "Function properties for" in line and kernel in line:
+            nums = [int(w) for w in lines[i + 1].replace(",", " ").split() if w.isdigit()]
+            regs = next(int(l.split("Used ")[1].split()[0]) for l in lines[i + 2:]
+                        if "Used " in l)
+            return regs, nums[0], nums[1], nums[2]
+    raise AssertionError(f"no ptxas report for {kernel}")
+
+
+def pose_problem(n, stereo, seed, dev, n_valid=None, bf=None, f64=False):
+    """A seeded pose problem: points 2-6 m ahead (1-5 m with bf given),
+    0.3 px noise, 10 % gross outliers; n_valid rows, then invalid padding
+    to n; half the valid rows stereo (all of them with bf given)."""
+    import torch
+
+    from tpuslam_torch.solve.pose_opt_cuda import _se3_exp
+
+    rng = np.random.RandomState(seed)
+    nv = n if n_valid is None else n_valid
+    cx, cy = W / 2.0, H / 2.0
+    rgbd = bf is not None
+    bf = (FX * BASELINE if stereo else 0.0) if bf is None else bf
+    X = np.stack([rng.randn(nv), rng.randn(nv), rng.rand(nv) * 4 + (1 if rgbd else 2)], -1)
+    u = FX * X[:, 0] / X[:, 2] + cx
+    v = FY * X[:, 1] / X[:, 2] + cy
+    uvr = np.stack([u, v, u - bf / X[:, 2]], -1) + rng.randn(nv, 3) * 0.3
+    uvr[: nv // 10] += rng.randn(nv // 10, 3) * 40
+    is_st = np.zeros(n, bool)
+    if stereo:
+        is_st[: nv if rgbd else nv // 2] = True
+    valid = np.zeros(n, bool)
+    valid[:nv] = True
+    pad = ((0, n - nv), (0, 0))
+    ftype = torch.float64 if f64 else torch.float32
+    dR, dt = _se3_exp(torch.tensor([0.05, -0.02, 0.03, 0.02, -0.015, 0.01], dtype=ftype))
+    inv_s2 = SCALE ** (-2.0 * rng.randint(0, N_LEVELS, nv)) if n_valid is not None else np.ones(n)
+    arrays = [dR, dt, torch.tensor(np.pad(X, pad)), torch.tensor(np.pad(uvr, pad)),
+              torch.tensor(np.pad(inv_s2, (0, n - len(inv_s2))))]
+    arrays = [a.to(ftype).contiguous().to(dev) for a in arrays]
+    return arrays + [torch.tensor(is_st, device=dev), torch.tensor(valid, device=dev),
+                     FX, FY, cx, cy, bf]
+
+
 def phase_kernels(dev, seq):
-    """Kernel vs plain version on the card at main-path shapes."""
+    """Kernel vs plain version on the card at main-path shapes; each timed
+    host-inclusive (events around the wrapper) and device-only (a replayed
+    CUDA graph of N_GRAPH launches), beside its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -118,177 +268,148 @@ def phase_kernels(dev, seq):
     from tpuslam_torch.ops.image import build_pyramid, gaussian_blur, gaussian_kernel1d
     from tpuslam_torch.ops.orb import DESC_R, HALF_PATCH, PAD, _select_level_keypoints
     from tpuslam_torch.solve import pose_opt_cuda
-    from tpuslam_torch.solve.pose_opt_cuda import _se3_exp
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
 
     records = []
-    # -- patch gather: real padded blurred levels of a rendered frame
+    # -- patch gather: the real padded blurred levels of a rendered frame,
+    # all 8 levels of one image in one launch
     cfg = OrbConfig(n_features=N_FEATURES)
     img = torch.tensor(u8(seq.frame(0)), device=dev).float()
     taps = torch.tensor(gaussian_kernel1d(), device=dev)
-    calls = []
-    for im, budget in zip(build_pyramid(img, cfg.n_levels, cfg.scale), cfg.level_budgets()):
+    levels, corners = [], []
+    budgets = cfg.level_budgets()
+    for im, budget in zip(build_pyramid(img, cfg.n_levels, cfg.scale), budgets):
         score = nms3x3(cell_threshold_gate(fast_score(im), cfg.ini_th, cfg.min_th, cfg.th_cell))
         h, w = im.shape
         score = torch.where(_border_mask(h, w, HALF_PATCH + 1, dev), score, 0.0)
         xy, _ = _select_level_keypoints(score, budget, cfg.cell)
-        pad_blur = F.pad(gaussian_blur(im, taps)[None, None], (PAD,) * 4,
-                         mode="replicate")[0, 0].contiguous()
-        yx = (torch.stack([xy[:, 1], xy[:, 0]], -1) + (PAD - DESC_R)).contiguous()
-        calls.append((pad_blur, yx))
+        levels.append(F.pad(gaussian_blur(im, taps)[None, None], (PAD,) * 4,
+                            mode="replicate")[0, 0].contiguous())
+        corners.append(torch.stack([xy[:, 1], xy[:, 0]], -1) + (PAD - DESC_R))
+    yx = torch.cat(corners).contiguous()
     size = 2 * DESC_R + 1
-    err = 0.0
-    for (im, yx), budget in zip(calls, cfg.level_budgets()):
-        got = patch_cuda.extract_patches(im, yx, size)
-        ref = patch_cuda.extract_patches_plain(im, yx, size)
-        torch.cuda.synchronize()
-        check(got.shape == (budget, size, size), f"patch shape {tuple(got.shape)}")
-        check(torch.equal(got, ref), "patch gather differs from its plain version")
-        err = max(err, float((got - ref).abs().max()))
-    ms = median_ms(lambda: [patch_cuda.extract_patches(im, yx, size) for im, yx in calls])
-    plain_ms = median_ms(lambda: [patch_cuda.extract_patches_plain(im, yx, size)
-                                  for im, yx in calls])
-    log(f"[kernels] patch gather: bitwise equal on {len(calls)} levels "
-        f"(K={cfg.level_budgets()}); 8 launches (one image): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (median of {N_TIMED})")
+    got = patch_cuda.extract_patches_levels(levels, yx, budgets, size)
+    ref = patch_cuda.extract_patches_levels_plain(levels, yx, budgets, size)
+    starts = np.cumsum([0] + budgets)
+
+    def library():  # one PyTorch call per level: every window, then the corners'
+        return [lv.unfold(0, size, 1).unfold(1, size, 1)[c[:, 0].long(), c[:, 1].long()]
+                for lv, c in zip(levels, corners)]
+
+    lib = torch.cat(library())
+    torch.cuda.synchronize()
+    check(got.shape == (N_FEATURES, size, size), f"patch shape {tuple(got.shape)}")
+    check(torch.equal(got, ref), "patch gather differs from its plain version")
+    check(torch.equal(lib, ref), "the unfold library call differs from the plain gather")
+    err = float((got - ref).abs().max())
+    timed = {}
+    for rep in range(2):  # kernel, plain, library, then in reverse
+        order = ("kernel", "plain", "library") if rep == 0 else ("library", "plain", "kernel")
+        for what in order:
+            fn = {"kernel": lambda: patch_cuda.extract_patches_levels(levels, yx, budgets, size),
+                  "plain": lambda: patch_cuda.extract_patches_levels_plain(levels, yx, budgets,
+                                                                           size),
+                  "library": library}[what]
+            timed.setdefault(what, []).append((median_ms(fn), device_ms(fn)))
+    host_ms, dev_ms = (float(np.median([t[i] for t in timed["kernel"]])) for i in (0, 1))
+    plain_ms, plain_dev = (float(np.median([t[i] for t in timed["plain"]])) for i in (0, 1))
+    lib_ms, lib_dev = (float(np.median([t[i] for t in timed["library"]])) for i in (0, 1))
+    n_bytes = window_bytes(levels, corners, size) + yx.numel() * 4 + got.numel() * 4
+    b_ms, b_by, b_res = bound(n_bytes, 0)
+    log(f"[kernels] patch gather: bitwise equal to its plain version and to the unfold library "
+        f"call over {len(levels)} levels (K={budgets}, starts {starts.tolist()}), one launch "
+        f"per image: kernel device {dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms; plain "
+        f"{plain_ms:.5f} ms (device {plain_dev:.5f}); library (8 unfold calls) {lib_ms:.5f} ms "
+        f"(device {lib_dev:.5f}); bound {b_ms:.5f} ms ({n_bytes} bytes: the output, the "
+        f"corners and the union of the windows on each level; {b_res}); "
+        f"the bound is {b_ms / dev_ms:.3f} of the device time")
     records.append(dict(name="patch_gather", route="cuda",
                         source="tpuslam_torch/csrc/patch.cu",
                         replaces="tpuslam/ops/patch_pallas.py:88",
-                        max_abs_err=err, ms=ms, plain_ms=plain_ms))
+                        max_abs_err=err, ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms,
+                        plain_device_ms=plain_dev, bound_ms=b_ms, bound_by=b_by,
+                        bound_resource=b_res, bytes=n_bytes,
+                        library_ms=lib_ms, library_device_ms=lib_dev,
+                        library="Tensor.unfold(0, 37, 1).unfold(1, 37, 1)[rows, cols], "
+                                "one call per level"))
 
-    # -- pose LM: seeded mono and stereo problems, 10% gross outliers
-    worst = 0.0
-    for stereo in (False, True):
-        rng = np.random.RandomState(1 if stereo else 0)
-        n, n_out = 1024, 102
-        cx, cy = W / 2.0, H / 2.0
-        bf = FX * BASELINE if stereo else 0.0
-        X = np.stack([rng.randn(n), rng.randn(n), rng.rand(n) * 4 + 2], -1).astype(np.float32)
-        u = FX * X[:, 0] / X[:, 2] + cx
-        v = FY * X[:, 1] / X[:, 2] + cy
-        uvr = np.stack([u, v, u - bf / X[:, 2]], -1) + rng.randn(n, 3) * 0.3
-        uvr[:n_out] += rng.randn(n_out, 3) * 40
-        is_st = np.zeros(n, bool)
-        if stereo:
-            is_st[: n // 2] = True
-        dR, dt = _se3_exp(torch.tensor([0.05, -0.02, 0.03, 0.02, -0.015, 0.01]))
-        args = [dR.contiguous(), dt.contiguous(), torch.tensor(X), torch.tensor(uvr, dtype=torch.float32),
-                torch.ones(n), torch.tensor(is_st), torch.ones(n, dtype=torch.bool)]
-        args = [a.to(dev) for a in args] + [FX, FY, cx, cy, bf]
-        Rk, tk, ik, ck = pose_opt_cuda.pose_optimize_fused(*args)
-        Rp, tp, ip, cp = pose_opt_cuda.pose_optimize_plain(*args)
+    # -- pose LM at the four shapes of the main paths: the fused step's
+    # N = 1024 (stereo and mono), the host tracker's 700 rows padded to 768
+    # (f64 inputs cast to f32), an RGB-D host frame's 230 depth-derived
+    # stereo rows padded to 256
+    shapes = {
+        "stereo_1024": pose_problem(1024, True, 1, dev),
+        "mono_1024": pose_problem(1024, False, 0, dev),
+        "host_768": pose_problem(768, True, 2, dev, n_valid=700, f64=True),
+        "rgbd_256": pose_problem(256, True, 3, dev, n_valid=230, bf=FX * 0.08, f64=True),
+    }
+    worst, shape_rec = 0.0, {}
+    for name, args in shapes.items():
+        host = name in ("host_768", "rgbd_256")
+        args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + args[5:]
+        before = pose_opt_cuda.counter.launches
+        Rk, tk, ik, ck = (pose_optimize_best if host else pose_opt_cuda.pose_optimize_fused)(*args)
+        check(pose_opt_cuda.counter.launches == before + 1, f"{name}: the solve did not launch")
+        again = pose_opt_cuda.pose_optimize_fused(*args32)
+        rounds = []
+        Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32, rounds=rounds)
         torch.cuda.synchronize()
         eR = float((Rk - Rp).abs().max())
         et = float((tk - tp).abs().max())
         agree = float((ik == ip).float().mean())
-        log(f"[kernels] pose LM {'stereo' if stereo else 'mono'}: |dR| {eR:.3g} "
-            f"|dt| {et:.3g} inlier agreement {agree:.4f}; |R-I| "
-            f"{float((Rk - torch.eye(3, device=dev)).abs().max()):.3g} |t| {float(tk.abs().max()):.3g}")
-        check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99, "pose LM kernel vs plain out of tolerance")
-        check(bool(torch.isfinite(ck).all()), "non-finite chi2")
+        n_valid = int(args[6].sum())
+        repeat = all(torch.equal(a, b) for a, b in zip(again, (Rk, tk, ik, ck)))
+        check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99,
+              f"pose LM {name}: kernel vs plain out of tolerance")
+        check(not bool(ik[n_valid:].any()), f"pose LM {name}: a padded row is an inlier")
+        check(bool(torch.isfinite(ck).all()), f"pose LM {name}: non-finite chi2")
+        check(repeat, f"pose LM {name}: two launches on the same inputs differ")
         worst = max(worst, eR, et)
-        if not stereo:
-            # the mono fused step's shape: N = 1024, every row monocular
-            ms_mono = median_ms(lambda: pose_opt_cuda.pose_optimize_fused(*args))
-            plain_ms_mono = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args), n=10)
-            log(f"[kernels] pose LM N=1024 mono (the mono fused step's shape): kernel "
-                f"{ms_mono:.4f} ms, plain {plain_ms_mono:.4f} ms (median of {N_TIMED} and 10)")
-    ms = median_ms(lambda: pose_opt_cuda.pose_optimize_fused(*args))
-    plain_ms = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args))
-    log(f"[kernels] pose LM N=1024, 4 rounds x 10 iters (stereo): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (median of {N_TIMED})")
-
-    # -- pose LM at the host tracker's shapes (Tracker._pose_opt): 700
-    # observations from f64 numpy, padded with invalid rows to 768, cast
-    # to f32 by the dispatcher
-    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
-
-    rng = np.random.RandomState(2)
-    n, nb = 700, 768
-    cx, cy = W / 2.0, H / 2.0
-    bf = FX * BASELINE
-    X = np.stack([rng.randn(n), rng.randn(n), rng.rand(n) * 4 + 2], -1)
-    u = FX * X[:, 0] / X[:, 2] + cx
-    v = FY * X[:, 1] / X[:, 2] + cy
-    uvr = np.stack([u, v, u - bf / X[:, 2]], -1) + rng.randn(n, 3) * 0.3
-    uvr[:70] += rng.randn(70, 3) * 40
-    is_st = np.zeros(nb, bool)
-    is_st[: n // 2] = True
-    valid = np.zeros(nb, bool)
-    valid[:n] = True
-    pad = ((0, nb - n), (0, 0))
-    dR, dt = _se3_exp(torch.tensor([0.05, -0.02, 0.03, 0.02, -0.015, 0.01], dtype=torch.float64))
-    inv_s2 = SCALE ** (-2.0 * rng.randint(0, N_LEVELS, n))
-    f64 = [dR, dt, torch.tensor(np.pad(X, pad)), torch.tensor(np.pad(uvr, pad)),
-           torch.tensor(np.pad(inv_s2, (0, nb - n)))]
-    args = [a.to(dev) for a in f64] + [torch.tensor(is_st, device=dev),
-                                       torch.tensor(valid, device=dev), FX, FY, cx, cy, bf]
-    before = pose_opt_cuda.counter.launches
-    Rk, tk, ik, _ = pose_optimize_best(*args)
-    check(pose_opt_cuda.counter.launches == before + 1, "host-shape solve did not launch")
-    args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + args[5:]
-    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32)
-    torch.cuda.synchronize()
-    eR = float((Rk - Rp).abs().max())
-    et = float((tk - tp).abs().max())
-    agree = float((ik == ip).float().mean())
-    log(f"[kernels] pose LM host shapes (N = {n} padded to {nb}, f64 -> f32): |dR| {eR:.3g} "
-        f"|dt| {et:.3g} inlier agreement {agree:.4f}, padded rows inliers "
-        f"{int(ik[n:].sum())}")
-    check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99 and not bool(ik[n:].any()),
-          "pose LM kernel vs plain out of tolerance at the host shapes")
-    worst = max(worst, eR, et)
-    ms_h = median_ms(lambda: pose_optimize_best(*args))
-    plain_ms_h = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args32), n=10)
-    log(f"[kernels] pose LM N={nb} host shapes: kernel {ms_h:.4f} ms (cast included), "
-        f"plain {plain_ms_h:.4f} ms (median of {N_TIMED} and 10)")
-
-    # -- pose LM at an RGB-D host frame's shapes (Tracker._pose_opt on
-    # track_rgbd): 230 matches, stereo rows from the depth map's virtual
-    # right coordinate u - bf / z, padded to 256
-    rng = np.random.RandomState(3)
-    n, nb = 230, 256
-    bf = FX * 0.08
-    X = np.stack([rng.randn(n), rng.randn(n), rng.rand(n) * 4 + 1], -1)
-    u = FX * X[:, 0] / X[:, 2] + cx
-    v = FY * X[:, 1] / X[:, 2] + cy
-    uvr = np.stack([u, v, u - bf / X[:, 2]], -1) + rng.randn(n, 3) * 0.3
-    uvr[:23] += rng.randn(23, 3) * 40
-    is_st = np.zeros(nb, bool)
-    is_st[:n] = True
-    valid = np.zeros(nb, bool)
-    valid[:n] = True
-    pad = ((0, nb - n), (0, 0))
-    inv_s2 = SCALE ** (-2.0 * rng.randint(0, N_LEVELS, n))
-    f64 = [dR, dt, torch.tensor(np.pad(X, pad)), torch.tensor(np.pad(uvr, pad)),
-           torch.tensor(np.pad(inv_s2, (0, nb - n)))]
-    args = [a.to(dev) for a in f64] + [torch.tensor(is_st, device=dev),
-                                       torch.tensor(valid, device=dev), FX, FY, cx, cy, bf]
-    before = pose_opt_cuda.counter.launches
-    Rk, tk, ik, _ = pose_optimize_best(*args)
-    check(pose_opt_cuda.counter.launches == before + 1, "RGB-D host-shape solve did not launch")
-    args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + args[5:]
-    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32)
-    torch.cuda.synchronize()
-    eR = float((Rk - Rp).abs().max())
-    et = float((tk - tp).abs().max())
-    agree = float((ik == ip).float().mean())
-    log(f"[kernels] pose LM RGB-D host shapes (N = {n} depth-derived stereo rows padded to "
-        f"{nb}, f64 -> f32): |dR| {eR:.3g} |dt| {et:.3g} inlier agreement {agree:.4f}, padded "
-        f"rows inliers {int(ik[n:].sum())}")
-    check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99 and not bool(ik[n:].any()),
-          "pose LM kernel vs plain out of tolerance at the RGB-D host shapes")
-    worst = max(worst, eR, et)
-    ms_r = median_ms(lambda: pose_optimize_best(*args))
-    plain_ms_r = median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args32), n=10)
-    log(f"[kernels] pose LM N={nb} RGB-D host shapes: kernel {ms_r:.4f} ms (cast included), "
-        f"plain {plain_ms_r:.4f} ms (median of {N_TIMED} and 10)")
+        fused = lambda: pose_opt_cuda.pose_optimize_fused(*args32)  # noqa: E731
+        wrapper = (lambda: pose_optimize_best(*args)) if host else fused
+        t = {"kernel": [], "plain": []}
+        for what in ("kernel", "plain", "plain", "kernel"):
+            if what == "kernel":
+                t["kernel"].append((median_ms(wrapper), device_ms(fused)))
+            else:
+                t["plain"].append(median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args32),
+                                            n=10))
+        host_ms = float(np.median([x[0] for x in t["kernel"]]))
+        dev_ms = float(np.median([x[1] for x in t["kernel"]]))
+        plain_ms = float(np.median(t["plain"]))
+        n = args[2].shape[0]
+        st = args[5] & args[6]
+        n_valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
+        steps = [r["steps"] for r in rounds]
+        in_use = [(r["mono"], r["stereo"]) for r in rounds]
+        n_flops = pose_lm_ops(rounds, n_valid_by)
+        n_bytes = n * (3 * 4 + 3 * 4 + 4 + 1 + 1) + 2 * (9 + 3) * 4 + n * (1 + 4)
+        b_ms, b_by, b_res = bound(n_bytes, n_flops)
+        shape_rec[name] = dict(n=n, valid=n_valid_by, ms=host_ms, device_ms=dev_ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, rounds=rounds,
+                               flops=n_flops, bytes=n_bytes)
+        log(f"[kernels] pose LM {name}: |dR| {eR:.3g} |dt| {et:.3g} inlier agreement "
+            f"{agree:.4f}, bitwise repeatable; kernel device {dev_ms:.5f} ms, host-inclusive "
+            f"{host_ms:.5f} ms{' (f64 cast included)' if host else ''}; plain {plain_ms:.4f} ms; "
+            f"LM steps per round {steps}, rows in use (mono, stereo) {in_use}; bound "
+            f"{b_ms:.6f} ms ({n_flops} f32 operations, {n_bytes} bytes: {b_res}); the bound "
+            f"is {b_ms / dev_ms:.4f} of the device time")
+    main = shape_rec["stereo_1024"]
     records.append(dict(name="pose_lm", route="cuda",
                         source="tpuslam_torch/csrc/pose_opt.cu",
                         replaces="tpuslam/solve/pose_opt_pallas.py:317",
-                        max_abs_err=worst, ms=ms, plain_ms=plain_ms,
-                        mono_ms=ms_mono, mono_plain_ms=plain_ms_mono,
-                        host_shapes_ms=ms_h, host_shapes_plain_ms=plain_ms_h,
-                        rgbd_host_ms=ms_r, rgbd_host_plain_ms=plain_ms_r))
+                        max_abs_err=worst, ms=main["ms"], device_ms=main["device_ms"],
+                        plain_ms=main["plain_ms"],
+                        mono_ms=shape_rec["mono_1024"]["ms"],
+                        mono_plain_ms=shape_rec["mono_1024"]["plain_ms"],
+                        host_shapes_ms=shape_rec["host_768"]["ms"],
+                        host_shapes_plain_ms=shape_rec["host_768"]["plain_ms"],
+                        rgbd_host_ms=shape_rec["rgbd_256"]["ms"],
+                        rgbd_host_plain_ms=shape_rec["rgbd_256"]["plain_ms"],
+                        bound_ms=main["bound_ms"], bound_by=main["bound_by"],
+                        bound_resource=("hbm" if main["bound_by"] == "bytes" else "f32 compute"),
+                        library_ms=None, library="none: no single PyTorch call solves an LM "
+                        "problem", shapes=shape_rec))
     return records
 
 
@@ -300,8 +421,8 @@ class plain_path:
         from tpuslam_torch.ops import orb, patch_cuda
         from tpuslam_torch.solve import pose_opt_cuda
 
-        self.saved = (orb.extract_patches, track_device.pose_optimize_fused)
-        orb.extract_patches = patch_cuda.extract_patches_plain
+        self.saved = (orb.extract_patches_levels, track_device.pose_optimize_fused)
+        orb.extract_patches_levels = patch_cuda.extract_patches_levels_plain
         track_device.pose_optimize_fused = pose_opt_cuda.pose_optimize_plain
         return self
 
@@ -309,7 +430,7 @@ class plain_path:
         from tpuslam_torch.engine import track_device
         from tpuslam_torch.ops import orb
 
-        orb.extract_patches, track_device.pose_optimize_fused = self.saved
+        orb.extract_patches_levels, track_device.pose_optimize_fused = self.saved
 
 
 def rot_err_deg(Ra, Rb):
@@ -375,8 +496,8 @@ def phase_slice(dev, seq, all_frames):
                 "pose_lm": pose_opt_cuda.counter.launches}
     n = len(inputs)
     log(f"[slice] kernel launches over {n} frames: {launches}")
-    check(launches == {"patch_gather": 16 * n, "pose_lm": 4 * n},
-          f"launch counters {launches} != 16/4 per frame")
+    check(launches == {"patch_gather": 2 * n, "pose_lm": 4 * n},
+          f"launch counters {launches} != 2 / 4 per frame")
     with plain_path():
         outs_p, _, ms_p = run(step, pose_ins)
     check(patch_cuda.counter.launches == launches["patch_gather"]
@@ -493,7 +614,7 @@ def phase_system(dev, seq, frames, smi):
         check(not errors, f"{name}: mapper errors {errors}")
         check(launches["patch_gather"] > 0 and launches["pose_lm"] > 0,
               f"{name}: a kernel was never launched: {launches}")
-        check(launches["patch_gather"] >= 16 * n_fused and launches["pose_lm"] >= 4 * n_fused,
+        check(launches["patch_gather"] >= 2 * n_fused and launches["pose_lm"] >= 4 * n_fused,
               f"{name}: fewer launches than fused dispatches")
         if not asyn:
             check(launches["pose_lm"] > 4 * n_fused, "a_sync: the host path ran no pose LM")
@@ -592,7 +713,7 @@ def phase_mono_loop(dev, smi):
     check(len(traj) >= N_LOOP - 20 and np.isfinite(est).all(), "mono_loop: trajectory")
     check(rmse < 0.05 * CIRCUMFERENCE, f"mono_loop: scaled ATE {rmse}")
     check(m.check_essential_graph() == [], "mono_loop: spanning tree broken")
-    check(n_fused > 0 and launches["patch_gather"] >= 8 * n_fused
+    check(n_fused > 0 and launches["patch_gather"] >= n_fused
           and launches["pose_lm"] >= 4 * n_fused, "mono_loop: fewer launches than dispatches")
     check(launches["pose_lm"] > 4 * n_fused, "mono_loop: the host path ran no pose LM")
     # a second-lap frame the System never saw (5 s past the run's end)
@@ -693,14 +814,26 @@ def main():
         f"{torch.cuda.get_device_name(0)}")
 
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tpuslam_torch import _build
+    from tpuslam_torch import _build, native
     from tpuslam_torch.io.synthetic import SyntheticSequence
 
+    # build every kernel and the native map core from the sources here
     t0 = time.perf_counter()
+    _build.LIB.unlink(missing_ok=True)
     _build.build(verbose=True)
     _build.lib()
-    log(f"[build] kernels built/loaded in {time.perf_counter() - t0:.1f} s "
-        f"(nvcc {_build.build_seconds if _build.build_seconds is not None else 'cached'})")
+    log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.1f} s (nvcc, one "
+        f"process per source, {_build.build_seconds:.1f} s)")
+    for kernel in ("pose_lm_kernel", "patch_gather_kernel"):
+        regs, stack, st, ld = ptxas_report(_build.build_log, kernel)
+        log(f"[build] {kernel}: {regs} registers, {stack} bytes stack frame, {st} bytes spill "
+            f"stores, {ld} bytes spill loads")
+        check(kernel != "pose_lm_kernel" or stack == st == ld == 0,
+              "the pose LM kernel has a stack frame or spills")
+    native.LIB.unlink(missing_ok=True)
+    check(native.available(), "the native map core did not build or load")
+    log(f"[build] native map core built and loaded from "
+        f"{native.LIB.relative_to(_build.ROOT.parent)}")
 
     seq = SyntheticSequence(n_frames=N_SYSTEM, fps=20, speed=0.5, baseline=BASELINE,
                             height=H, width=W, fx=FX, fy=FY)
@@ -713,9 +846,13 @@ def main():
     del frames
     by_path["mono_loop"] = phase_mono_loop(dev, smi)
     by_path["rgbd"] = phase_rgbd(dev, smi)
+    frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
+                      "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}
+        r["launches_per_frame"] = {k: c[r["name"]] / frames_by_path[k]
+                                   for k, c in by_path.items()}
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -5,8 +5,9 @@ imports no jax, so it also runs on a host that has none:
     python -m pytest --noconftest -o addopts="" -m gpu tests/test_torch_cuda.py
 
 Tolerances: the patch gather is a copy (bitwise); the pose LM sums in
-another order than the plain version (R 1e-4, t 1e-3, inliers >= 0.99);
-the fused step, stereo and mono, as in tests/test_torch_track_step.py.
+another order than the plain version (R 1e-4, t 1e-3, inliers >= 0.99)
+and repeats itself bitwise (fixed-order reductions); the fused step,
+stereo and mono, as in tests/test_torch_track_step.py.
 """
 
 import numpy as np
@@ -57,10 +58,45 @@ def test_patch_kernel_masks_out_of_bounds(cuda):
 
 def test_patch_kernel_rejects_bad_inputs(cuda):
     img = torch.zeros(40, 50, device=cuda)
+    yx = torch.zeros(3, 2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         patch_cuda.extract_patches(img, torch.zeros(3, 2, dtype=torch.int64, device=cuda), 37)
     with pytest.raises(ValueError):
-        patch_cuda.extract_patches(img.T, torch.zeros(3, 2, dtype=torch.int32, device=cuda), 37)
+        patch_cuda.extract_patches(img.T, yx, 37)
+    with pytest.raises(ValueError):
+        patch_cuda.extract_patches(img, yx, patch_cuda.MAX_SIZE + 1)
+    with pytest.raises(ValueError):                                  # counts != rows
+        patch_cuda.extract_patches_levels([img, img], yx, [1, 1], 37)
+    with pytest.raises(ValueError):                                  # a level on the CPU
+        patch_cuda.extract_patches_levels([img, img.cpu()], yx, [1, 2], 37)
+    with pytest.raises(ValueError):
+        patch_cuda.extract_patches_levels([img] * (patch_cuda.MAX_LEVELS + 1), yx,
+                                          [3] + [0] * patch_cuda.MAX_LEVELS, 37)
+
+
+@pytest.mark.parametrize("size", [37, 16])
+def test_patch_levels_kernel_bitwise(cuda, size):
+    """One launch over 8 levels (one of them with no keypoint) against the
+    per-level plain gathers; a corner that breaks the contract reads 0
+    outside its level, as the plain gather cannot show."""
+    rng = np.random.RandomState(7)
+    shapes = [(int(518 / 1.2 ** l), int(790 / 1.2 ** l)) for l in range(8)]
+    counts = [222, 185, 0, 128, 107, 89, 74, 65]
+    imgs = [torch.tensor(rng.rand(h, w).astype(np.float32), device=cuda) for h, w in shapes]
+    yx = np.concatenate([np.stack([rng.randint(0, h - size + 1, n),
+                                   rng.randint(0, w - size + 1, n)], -1)
+                         for (h, w), n in zip(shapes, counts)]).astype(np.int32)
+    yx[counts[0] - 1] = (shapes[0][0] - size, shapes[0][1] - size)   # last row of level 0
+    yx = torch.tensor(yx, device=cuda)
+    before = patch_cuda.counter.launches
+    got = patch_cuda.extract_patches_levels(imgs, yx, counts, size)
+    assert patch_cuda.counter.launches == before + 1
+    assert torch.equal(got, patch_cuda.extract_patches_levels_plain(imgs, yx, counts, size))
+    h7, w7 = shapes[7]
+    yx[-1] = torch.tensor([h7 - 5, w7 - 3], dtype=torch.int32)        # level 7's last row
+    out = patch_cuda.extract_patches_levels(imgs, yx, counts, size)[-1].cpu()
+    assert torch.equal(out[:5, :3], imgs[7][h7 - 5:, w7 - 3:].cpu())
+    assert out[5:].eq(0).all() and out[:, 3:].eq(0).all()             # 0 outside level 7
 
 
 def _pose_problem(n, stereo, dev, seed=0):
@@ -79,8 +115,9 @@ def _pose_problem(n, stereo, dev, seed=0):
     return [a.contiguous().to(dev) for a in arrays] + [fx, fx, cx, cy, bf]
 
 
-@pytest.mark.parametrize("n,stereo,n_rounds", [(1024, False, 4), (1024, True, 4),
-                                               (217, True, 2), (5000, True, 2)])
+@pytest.mark.parametrize("n_rounds", [2, 4])
+@pytest.mark.parametrize("stereo", [False, True])
+@pytest.mark.parametrize("n", [217, 256, 768, 1024, 5000])
 def test_pose_kernel_matches_plain(cuda, n, stereo, n_rounds):
     args = _pose_problem(n, stereo, cuda)
     R, t, inl, chi2 = pose_opt_cuda.pose_optimize_fused(*args, n_rounds=n_rounds)
@@ -89,7 +126,8 @@ def test_pose_kernel_matches_plain(cuda, n, stereo, n_rounds):
     assert (R - Rp).abs().max() <= 1e-4 and (t - tp).abs().max() <= 1e-3
     assert (inl == inlp).float().mean() >= 0.99
     again = pose_opt_cuda.pose_optimize_fused(*args, n_rounds=n_rounds)
-    assert torch.equal(again[0], R) and torch.equal(again[1], t)   # fixed-order reductions
+    for a, b in zip(again, (R, t, inl, chi2)):                      # fixed-order reductions
+        assert torch.equal(a, b)
 
 
 def test_fused_step_kernels_match_plain(cuda, monkeypatch):
@@ -107,9 +145,9 @@ def test_fused_step_kernels_match_plain(cuda, monkeypatch):
     inp = step_inputs_from_numpy(frames[1], *local, pose0, np.float32([60]), cuda)
     n_patch, n_pose = patch_cuda.counter.launches, pose_opt_cuda.counter.launches
     out = step(*inp)
-    assert patch_cuda.counter.launches - n_patch == 16
+    assert patch_cuda.counter.launches - n_patch == 2          # one per image
     assert pose_opt_cuda.counter.launches - n_pose == 4
-    monkeypatch.setattr(orb, "extract_patches", patch_cuda.extract_patches_plain)
+    monkeypatch.setattr(orb, "extract_patches_levels", patch_cuda.extract_patches_levels_plain)
     monkeypatch.setattr(track_device, "pose_optimize_fused", pose_opt_cuda.pose_optimize_plain)
     ref = step(*inp)
     assert (out["pose"][:9] - ref["pose"][:9]).abs().max() <= 5e-4
@@ -119,7 +157,7 @@ def test_fused_step_kernels_match_plain(cuda, monkeypatch):
 
 
 def test_mono_fused_step_kernels_match_plain(cuda, monkeypatch):
-    """The mono step (one image: 8 patch launches, 4 pose LMs with every
+    """The mono step (one image: 1 patch launch, 4 pose LMs with every
     row monocular) through the kernels against its plain path, chained
     over two frames."""
     seq = SyntheticSequence(n_frames=3, fps=20, speed=0.5, baseline=0.11)
@@ -140,10 +178,10 @@ def test_mono_fused_step_kernels_match_plain(cuda, monkeypatch):
                                      cuda)
         n_patch, n_pose = patch_cuda.counter.launches, pose_opt_cuda.counter.launches
         out = mono(*inp)
-        assert patch_cuda.counter.launches - n_patch == 8
+        assert patch_cuda.counter.launches - n_patch == 1
         assert pose_opt_cuda.counter.launches - n_pose == 4
         with monkeypatch.context() as mp:
-            mp.setattr(orb, "extract_patches", patch_cuda.extract_patches_plain)
+            mp.setattr(orb, "extract_patches_levels", patch_cuda.extract_patches_levels_plain)
             mp.setattr(track_device, "pose_optimize_fused", pose_opt_cuda.pose_optimize_plain)
             ref = mono(*inp)
         assert (out["pose"][:9] - ref["pose"][:9]).abs().max() <= 5e-4
@@ -195,7 +233,7 @@ def test_system_on_the_card_matches_cpu(cuda):
         runs[dev.type] = (slam, patch_cuda.counter.launches - n_patch,
                           pose_opt_cuda.counter.launches - n_pose)
     gpu, cpu = runs["cuda"], runs["cpu"]
-    assert gpu[1] == 8 * 16 and gpu[2] > 6 * 4 and cpu[1:] == (0, 0)
+    assert gpu[1] == 8 * 2 and gpu[2] > 6 * 4 and cpu[1:] == (0, 0)
     assert gpu[0].get_tracking_state().name == "OK" and len(gpu[0].map.valid_kf_ids()) >= 3
     for a, b in zip(gpu[0].trajectory_tum(), cpu[0].trajectory_tum()):
         assert abs(a[0] - b[0]) < 1e-9 and np.linalg.norm(np.subtract(a[1:4], b[1:4])) < 0.01

@@ -71,7 +71,8 @@ class Side:
         store, cfgm, lm, lc = ((t_store, t_cfg, t_lm, t_lc) if port
                                else (j_store, j_cfg, j_lm, j_lc))
         self.port, self.store = port, store
-        vocab = (train_vocabulary if port else j_train_vocabulary)(vocab_descs, k=6, L=3, iters=4)
+        vocab = (train_vocabulary if port else j_train_vocabulary)(
+            vocab_descs, k=6, L=3, iters=4, **({"device": "cpu"} if port else {}))
         cam = (Pinhole if port else JPinhole)([FX, FY, CX, CY], W, H)
         cfg = cfgm.SlamConfig(loop=cfgm.LoopConfig(**loop_kw))
         self.m = store.SlamMap(n_feat=n_slots)
@@ -306,7 +307,8 @@ def _noisy_map(store, rng, n_kf=5, P=80):
 
 def _closer(port, m, background=True):
     vocab = (train_vocabulary if port else j_train_vocabulary)(
-        (np.random.RandomState(3).rand(120, 256) > 0.5).astype(np.uint8), k=5, L=2, iters=3)
+        (np.random.RandomState(3).rand(120, 256) > 0.5).astype(np.uint8), k=5, L=2, iters=3,
+        **({"device": "cpu"} if port else {}))
     cfgm = t_cfg if port else j_cfg
     cfg = cfgm.SlamConfig(loop=cfgm.LoopConfig(background_gba=background))
     cam = (Pinhole if port else JPinhole)([FX, FY, CX, CY], W, H)
@@ -433,10 +435,10 @@ def test_window_ba_abort_skips_second_phase(monkeypatch):
     monkeypatch.setattr(t_lm.B, "ba_solve_np", counting)
     inv_s2 = 1.0 / m.scale_factors ** 2
     t_lm.window_ba(m, cam, cam.spec, inv_s2, 0.0, list(m.valid_kf_ids()),
-                   abort_check=lambda: True)
+                   abort_check=lambda: True, device="cpu")
     assert len(calls) == 1
     t_lm.window_ba(m, cam, cam.spec, inv_s2, 0.0, list(m.valid_kf_ids()),
-                   abort_check=lambda: False)
+                   abort_check=lambda: False, device="cpu")
     assert len(calls) == 3
 
 

@@ -35,18 +35,19 @@ def _setup(n_frames=92):
                      tracking=TrackingConfig(max_frames_between_kf=4, min_matches_init=60,
                                              motion_model_radius=25.0, time_recently_lost=2.0),
                      loop=LoopConfig(min_proj_matches=35, min_bow_matches=15))
-    fe = Frontend(cam, cfg.orb)
+    fe = Frontend(cam, cfg.orb, device="cpu")
     descs = []
     for i in (0, 10, 20, 30):
         f = fe.process(seq.frame(i))
         descs.append(f.bits[f.valid])
-    return seq, cam, cfg, fe, train_vocabulary(np.concatenate(descs), k=8, L=3, iters=5)
+    return seq, cam, cfg, fe, train_vocabulary(np.concatenate(descs), k=8, L=3, iters=5,
+                                          device="cpu")
 
 
 @pytest.fixture(scope="module")
 def loop_run():
     seq, cam, cfg, fe, vocab = _setup()
-    slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab)
+    slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab, device="cpu")
     for i, t in enumerate(seq.timestamps()):
         slam.track_monocular(seq.frame(i), t)
     slam.shutdown()
@@ -113,7 +114,8 @@ def test_bow_relocalization(loop_run):
 
 def test_async_mapper_with_loop_closer_state_after_flush():
     seq, cam, cfg, _, vocab = _setup(n_frames=24)
-    slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab, async_mapping=True)
+    slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab, async_mapping=True,
+                  device="cpu")
     assert slam.async_mapper.loop_closer is slam.loop_closer
     assert slam.tracker.loop_closer is None          # the worker runs it
     for i, t in enumerate(seq.timestamps()):

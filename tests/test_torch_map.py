@@ -63,7 +63,7 @@ def test_match_padded_matches_tpuslam(rng, kind):
           "local": dict(max_dist=j_match.TH_HIGH, nn_ratio=0.8, oct_b=oct_b,
                         ratio_same_octave=True)}[kind]
     ji, jd = j_match.match_padded(bits_a, bits_b, mask, **kw)
-    ti, td = match.match_padded(bits_a, bits_b, mask, **kw)
+    ti, td = match.match_padded(bits_a, bits_b, mask, device="cpu", **kw)
     assert (ji >= 0).sum() > 10
     assert np.array_equal(ti, ji) and np.array_equal(td, jd)
 
@@ -249,7 +249,7 @@ def _tree_map(FF, SM):
 
 def test_erase_keyframe_reparents_to_the_saved_parent():
     m = _tree_map(FrameFeatures, SlamMap)
-    lm = LocalMapper(Pinhole(list(CAM), W, H), SlamConfig(), m, bf=20.0)
+    lm = LocalMapper(Pinhole(list(CAM), W, H), SlamConfig(), m, bf=20.0, device="cpu")
     lm._erase_keyframe(1)
     assert not m.kf_valid[1]
     assert m.kf_parent[2] == 0          # the saved parent, not the anchor
@@ -297,7 +297,7 @@ def test_create_new_points_caps_the_neighbours():
     cfg = SlamConfig(mapping=MappingConfig(n_triangulate_neighbors=40))
     m = _wide_map(FrameFeatures, SlamMap)
     assert len(m.best_covisible(35)) > 32
-    lm = LocalMapper(Pinhole(list(CAM), W, H), cfg, m, bf=20.0)
+    lm = LocalMapper(Pinhole(list(CAM), W, H), cfg, m, bf=20.0, device="cpu")
     seen = []
     real = lm.devk.tri_match
     lm.devk.tri_match = lambda *a: seen.append(len(a[3])) or real(*a)

@@ -62,12 +62,14 @@ def test_mono_fused_step_matches_tpuslam(monkeypatch):
     frames = [np.stack([_u8(seq.frame(i)), _u8(seq.frame(i, right=True))]) for i in range(3)]
     bf = seq.fx * seq.baseline
     cam = Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height)
-    st = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2, bf, True)
+    st = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2, bf, True,
+                        device="cpu")
     f0 = st.extract(torch.tensor(frames[0]))
     f0["und_xy"] = f0["xy"]
     local = stereo_local_map({k: v.numpy() for k, v in f0.items()}, seq.fx, seq.fy, seq.cx,
                              seq.cy, st.sf.numpy(), p_base=512)
-    mono = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2, 0.0, False)
+    mono = FusedTrackStep(cam, OrbConfig(n_features=500), TrackingConfig(), 8, 1.2, 0.0, False,
+                          device="cpu")
     jstep = j_td.make_fused_step(JPinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width,
                                           seq.height),
                                  JOrbConfig(n_features=500), JTrackingConfig(), 8, 1.2, 0.0,
@@ -108,7 +110,7 @@ def test_slice_matches_tpuslam_mono_system(jax_init_draw):
     ts = System(Pinhole(cam, seq.width, seq.height),
                 SlamConfig(orb=OrbConfig(n_features=600),
                            tracking=TrackingConfig(max_frames_between_kf=3)),
-                sensor=Sensor.MONOCULAR, dtype=torch.float64)
+                sensor=Sensor.MONOCULAR, dtype=torch.float64, device="cpu")
     n_ok = 0
     for i in range(seq.n_frames):
         img = seq.frame(i)
@@ -131,7 +133,8 @@ def test_port_mono_gates(tmp_path):
     """tests/test_e2e_mono.py's gates on the port alone (f32 solvers)."""
     seq = SyntheticSequence(n_frames=28, fps=10, speed=0.5)
     slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height),
-                  SlamConfig(orb=OrbConfig(n_features=600)), sensor=Sensor.MONOCULAR)
+                  SlamConfig(orb=OrbConfig(n_features=600)), sensor=Sensor.MONOCULAR,
+                  device="cpu")
     for i in range(seq.n_frames):
         slam.track_monocular(seq.frame(i), i / seq.fps)
     slam.shutdown()

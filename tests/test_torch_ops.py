@@ -190,6 +190,46 @@ def test_patch_wrapper_uses_plain_on_cpu_and_rejects_other_devices():
         patch_cuda.extract_patches(img.to("meta"), yx.to("meta"), 37)
 
 
+@pytest.mark.parametrize("sizes,counts", [([(480, 752), (400, 627), (333, 522)], [64, 0, 40]),
+                                          ([(96, 200)], [6]),
+                                          ([(518, 790), (190, 302)], [0, 9])])
+def test_patch_levels_plain_is_the_per_level_gathers(rng, sizes, counts):
+    """The multi-level gather: bitwise the per-level plain gathers,
+    concatenated, and tpuslam's XLA gather level by level (a level may
+    have no keypoints)."""
+    size = 37
+    imgs = [torch.tensor((rng.rand(h, w) * 255.0).astype(f32)) for h, w in sizes]
+    yx = [np.stack([rng.randint(0, h - size + 1, n), rng.randint(0, w - size + 1, n)], -1)
+          for (h, w), n in zip(sizes, counts)]
+    if counts[0]:
+        h, w = sizes[0]
+        yx[0][:2] = [(0, 0), (h - size, w - size)]
+    yx_all = torch.tensor(np.concatenate(yx).astype(np.int32))
+    got = patch_cuda.extract_patches_levels(imgs, yx_all, counts, size)
+    assert got.shape == (sum(counts), size, size)
+    k = 0
+    for img, c, q in zip(imgs, counts, yx):
+        ref = patch_cuda.extract_patches_plain(img, torch.tensor(q.astype(np.int32)), size)
+        assert torch.equal(got[k:k + c], ref)
+        xla = _extract_patches_xla(jnp.asarray(img.numpy()), jnp.asarray(q.astype(np.int32)), size)
+        assert np.array_equal(got[k:k + c].numpy(), np.asarray(xla))
+        k += c
+
+
+def test_patch_levels_wrapper_dispatch():
+    """CPU tensors take the plain version (no launch); a level or corner
+    tensor off the CPU and off the card is refused, also when mixed."""
+    imgs = [torch.zeros(50, 60), torch.zeros(40, 50)]
+    yx = torch.zeros(5, 2, dtype=torch.int32)
+    before = patch_cuda.counter.launches
+    assert patch_cuda.extract_patches_levels(imgs, yx, [3, 2], 37).shape == (5, 37, 37)
+    assert patch_cuda.counter.launches == before
+    with pytest.raises(ValueError):
+        patch_cuda.extract_patches_levels(imgs, yx.to("meta"), [3, 2], 37)
+    with pytest.raises(ValueError):
+        patch_cuda.extract_patches_levels([imgs[0].to("meta"), imgs[1]], yx, [3, 2], 37)
+
+
 # ------------------------------------------------------------ matching
 
 

@@ -37,7 +37,7 @@ def _perturb(rng, descs, n_flip):
 @pytest.fixture(scope="module")
 def vocabs():
     train = _descs(np.random.RandomState(0), 4000)
-    return (train_vocabulary(train, k=8, L=3, iters=5),
+    return (train_vocabulary(train, k=8, L=3, iters=5, device="cpu"),
             j_train_vocabulary(train, k=8, L=3, iters=5))
 
 
@@ -60,7 +60,7 @@ def test_transform_matches_tpuslam(vocabs, carried):
     d = _descs(np.random.RandomState(1), 300)
     valid = np.ones(300, bool)
     valid[-10:] = False
-    tw, tn, tb = tv.transform(d, valid)
+    tw, tn, tb = tv.transform(d, valid, device="cpu")
     jw, jn, jb = jv.transform(d, valid)
     assert np.array_equal(tw, jw) and np.array_equal(tn, jn)
     assert (tw[-10:] == -1).all() and (tw[:290] >= 0).all()
@@ -78,7 +78,7 @@ def test_similar_images_score_higher(vocabs):
     a = _descs(rng, 300)
     b = _descs(rng, 300)
     valid = np.ones(300, bool)
-    bow = [tv.transform(x, valid)[2] for x in (a, _perturb(rng, a, 12), b)]
+    bow = [tv.transform(x, valid, device="cpu")[2] for x in (a, _perturb(rng, a, 12), b)]
     s_same = BinaryVocabulary.score(bow[0], bow[1])
     assert s_same > 1.5 * BinaryVocabulary.score(bow[0], bow[2])
     assert s_same == pytest.approx(type(jv).score(bow[0], bow[1]), abs=1e-15)
@@ -91,7 +91,8 @@ def _fill(vocab, db_cls, rng, n_kf, n):
     for kf in range(n_kf):
         d = _descs(rng, n)
         descs.append(d)
-        word, _, bow = vocab.transform(d, valid)
+        port = isinstance(vocab, BinaryVocabulary)
+        word, _, bow = vocab.transform(d, valid, **({"device": "cpu"} if port else {}))
         db.add(kf, word, bow)
     return db, descs, valid
 
@@ -103,7 +104,7 @@ def test_kfdb_candidates_match_tpuslam(vocabs):
     tdb, descs, valid = _fill(tv, KeyFrameDatabase, np.random.RandomState(3), 12, 200)
     jdb, _, _ = _fill(jv, JKeyFrameDatabase, np.random.RandomState(3), 12, 200)
     q = _perturb(np.random.RandomState(4), descs[7], 10)
-    _, _, bow_q = tv.transform(q, valid)
+    _, _, bow_q = tv.transform(q, valid, device="cpu")
     covis = {k: [(k + 1) % 12, (k + 5) % 12] for k in range(12)}
     for exclude, covis_of in ((set(), lambda k: []), ({7}, lambda k: []),
                               (set(), lambda k: covis[k])):
@@ -124,7 +125,8 @@ def test_reloc_candidates_match_tpuslam(vocabs):
     tv, jv = vocabs
     tdb, descs, valid = _fill(tv, KeyFrameDatabase, np.random.RandomState(5), 8, 150)
     jdb, _, _ = _fill(jv, JKeyFrameDatabase, np.random.RandomState(5), 8, 150)
-    _, _, bow_q = tv.transform(_perturb(np.random.RandomState(6), descs[2], 8), valid)
+    _, _, bow_q = tv.transform(_perturb(np.random.RandomState(6), descs[2], 8), valid,
+                                 device="cpu")
     tc = tdb.detect_relocalization_candidates(bow_q, lambda kf: [])
     jc = jdb.detect_relocalization_candidates(bow_q, lambda kf: [])
     assert tc and tc[0][0] == 2

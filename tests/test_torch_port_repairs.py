@@ -1,0 +1,216 @@
+"""The port stands alone and runs on the card by default.
+
+  * No module of tpuslam_torch, and nothing in chip_smoke.py, imports
+    tpuslam or jax (a subprocess with both blocked imports them all).
+  * Every entry point defaults to the card: without one it raises, it
+    never carries on on the CPU.
+  * The port's own copies of tpuslam's jax-free helpers (utils/pad,
+    parallel/async_mapping, the native map core) behave as tpuslam's do.
+"""
+
+import os
+import subprocess
+import sys
+import threading
+
+import numpy as np
+import pytest
+import torch
+
+from tpuslam.native import NativeInvIndex as JNativeInvIndex
+from tpuslam.native import NativeObsIndex as JNativeObsIndex
+from tpuslam.parallel.async_mapping import AsyncMapper as JAsyncMapper
+from tpuslam.utils import pad as j_pad
+from tpuslam_torch import native
+from tpuslam_torch.cameras import Pinhole
+from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+from tpuslam_torch.map.store import SlamMap
+from tpuslam_torch.parallel.async_mapping import AsyncMapper
+from tpuslam_torch.utils import pad
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+ISOLATED = r"""
+import importlib, pkgutil, sys
+sys.modules["tpuslam"] = None
+sys.modules["jax"] = None
+import tpuslam_torch
+names = [m.name for m in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch.")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke
+loaded = {k for k, v in sys.modules.items() if v is not None}
+assert not {k for k in loaded if k.split(".")[0] in ("tpuslam", "jax")}, loaded
+print("ISOLATED_OK", len(names))
+"""
+
+
+def test_port_imports_nothing_of_tpuslam_or_jax():
+    res = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert "ISOLATED_OK" in res.stdout
+    assert int(res.stdout.split()[-1]) > 40          # every module was walked
+
+
+def _cam():
+    return Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
+
+
+def _entry(name):
+    """Build entry point `name` with its default device."""
+    from tpuslam_torch.engine.frontend import Frontend
+    from tpuslam_torch.engine.local_mapping import LocalMapper, window_ba
+    from tpuslam_torch.engine.loop_closing import LoopCloser
+    from tpuslam_torch.engine.map_device import MapDeviceKernels
+    from tpuslam_torch.engine.system import System
+    from tpuslam_torch.engine.track_device import FusedTrackStep
+    from tpuslam_torch.engine.tracking import Tracker
+    from tpuslam_torch.ops.match import match_padded
+    from tpuslam_torch.place import train_vocabulary
+    from tpuslam_torch.solve.ba import ba_solve_np
+    from tpuslam_torch.solve.pose_graph import optimize_essential_graph
+
+    cfg = SlamConfig(orb=OrbConfig(n_features=64))
+    descs = (np.random.RandomState(0).rand(40, 256) > 0.5).astype(np.uint8)
+    if name == "System":
+        return System(_cam(), cfg)
+    if name == "Tracker":
+        return Tracker(_cam(), cfg, SlamMap(64))
+    if name == "LocalMapper":
+        return LocalMapper(_cam(), cfg, SlamMap(64))
+    if name == "LoopCloser":
+        vocab = train_vocabulary(descs, k=2, L=2, iters=1, device="cpu")
+        return LoopCloser(_cam(), cfg, SlamMap(64), vocab)
+    if name == "Frontend":
+        return Frontend(_cam(), cfg.orb)
+    if name == "MapDeviceKernels":
+        return MapDeviceKernels(_cam(), np.ones(8), 3.0, 8)
+    if name == "FusedTrackStep":
+        return FusedTrackStep(_cam(), cfg.orb, TrackingConfig(), 8, 1.2, 20.0, True)
+    if name == "train_vocabulary":
+        return train_vocabulary(descs, k=2, L=2, iters=1)
+    if name == "BinaryVocabulary.transform":
+        vocab = train_vocabulary(descs, k=2, L=2, iters=1, device="cpu")
+        return vocab.transform(descs, np.ones(len(descs), bool))
+    if name == "window_ba":
+        return window_ba(SlamMap(64), _cam(), None, np.ones(8), 20.0, [])
+    if name == "ba_solve_np":
+        return ba_solve_np(np.eye(3)[None], np.zeros((1, 3)), np.array([[0.0, 0.0, 2.0]]), [0],
+                           [0], np.array([[100.0, 100.0, 0.0]]), [1.0], [False], [True], [True],
+                           200.0, 200.0, 100.0, 100.0, 0.0, n_iters=1)
+    if name == "optimize_essential_graph":
+        return optimize_essential_graph(SlamMap(64), [], {}, 0)
+    if name == "match_padded":
+        return match_padded(np.zeros((0, 32), np.uint8), np.zeros((3, 32), np.uint8),
+                            np.zeros((0, 3), bool))
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", ["System", "Tracker", "LocalMapper", "LoopCloser", "Frontend",
+                                  "MapDeviceKernels", "FusedTrackStep", "train_vocabulary",
+                                  "BinaryVocabulary.transform", "window_ba", "ba_solve_np",
+                                  "optimize_essential_graph", "match_padded"])
+def test_entry_points_default_to_the_card(name):
+    if torch.cuda.is_available():
+        obj = _entry(name)
+        dev = getattr(obj, "device", None)
+        assert dev is None or torch.device(dev).type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _entry(name)
+
+
+@pytest.mark.parametrize("n,base", [(0, 128), (1, 128), (128, 128), (129, 128), (700, 256),
+                                    (2049, 2048), (5000, 64)])
+def test_pad_bucket_matches_tpuslam(n, base):
+    assert pad.bucket(n, base) == j_pad.bucket(n, base)
+
+
+@pytest.mark.parametrize("shape,n,fill", [((5, 3), 8, 0), ((4,), 4, 0), ((3,), 9, True),
+                                          ((0, 2), 3, -1)])
+def test_pad_to_matches_tpuslam(shape, n, fill):
+    arr = np.arange(int(np.prod(shape)), dtype=np.float32).reshape(shape)
+    if fill is True:
+        arr = arr > 1
+    got, want = pad.pad_to(arr, n, fill), j_pad.pad_to(arr, n, fill)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+
+
+class _Mapper:
+    """Records the keyframes it maps; raises on kf 3."""
+
+    def __init__(self):
+        self.seen, self.abort_check = [], None
+
+    def on_new_keyframe(self, kf, lock=None):
+        with lock:
+            self.seen.append(kf)
+        if kf == 3:
+            raise ValueError("boom")
+
+
+class _Closer:
+    def __init__(self):
+        self.seen = []
+
+    def on_new_keyframe(self, kf):
+        self.seen.append(kf)
+
+
+@pytest.mark.parametrize("cls", [AsyncMapper, JAsyncMapper], ids=["port", "tpuslam"])
+def test_async_mapper_behaves_as_tpuslam(cls):
+    lm, lc = _Mapper(), _Closer()
+    mapper = cls(lm, lc, map_lock=threading.RLock())
+    try:
+        assert mapper.idle() and lm.abort_check() is False
+        for kf in range(6):
+            mapper.on_new_keyframe(kf)
+        with pytest.raises(ValueError, match="boom"):
+            mapper.flush()
+        assert lm.seen == list(range(6)) and lc.seen == [0, 1, 2, 4, 5]
+        assert len(mapper.errors) == 1 and mapper.idle()
+    finally:
+        mapper.shutdown()
+    assert not mapper.worker.is_alive()
+
+
+def test_native_core_is_the_port_own_build():
+    assert native.available()                        # g++ is on this machine
+    assert native.LIB.parent == native.BUILD_DIR and native.LIB.exists()
+    assert "tpuslam_torch" in str(native.LIB) and native.SRC.parent.name == "native"
+    assert SlamMap(16)._native is not None
+
+
+def test_native_indices_match_tpuslam():
+    rng = np.random.RandomState(0)
+    ports, refs = native.NativeObsIndex(), JNativeObsIndex()
+    for _ in range(300):
+        mp, kf, slot = rng.randint(0, 40), rng.randint(0, 12), rng.randint(0, 64)
+        assert ports.add(mp, kf, slot) == refs.add(mp, kf, slot)
+    for _ in range(40):
+        mp, kf = rng.randint(0, 40), rng.randint(0, 12)
+        assert ports.erase(mp, kf) == refs.erase(mp, kf)
+    for mp in range(40):
+        assert ports.count(mp) == refs.count(mp)
+        for a, b in zip(ports.items(mp), refs.items(mp)):
+            assert np.array_equal(a, b)
+    row = rng.randint(-1, 40, 64).astype(np.int32)
+    for a, b in zip(ports.covis_counts(0, row), refs.covis_counts(0, row)):
+        assert np.array_equal(a, b)
+    oct_ = rng.randint(0, 8, (12, 64)).astype(np.int8)
+    assert ports.redundancy(0, row, oct_) == refs.redundancy(0, row, oct_)
+
+    porti, refi = native.NativeInvIndex(50), JNativeInvIndex(50)
+    for kf in range(8):
+        words = np.unique(rng.randint(0, 50, 12))
+        weights = rng.rand(len(words)).astype(np.float32)
+        porti.add(kf, words, weights)
+        refi.add(kf, words, weights)
+    assert porti.erase(3) == refi.erase(3)
+    q = np.unique(rng.randint(0, 50, 10))
+    qw = rng.rand(len(q)).astype(np.float32)
+    for a, b in zip(porti.shared(q, [1]), refi.shared(q, [1])):
+        assert np.array_equal(a, b)
+    for kf in range(8):
+        assert porti.score(kf, q, qw) == refi.score(kf, q, qw)

@@ -92,6 +92,23 @@ def test_short_schedules_match_pallas(n_rounds):
     assert np.mean(inl == inlj) >= 0.99
 
 
+@pytest.mark.parametrize("n,stereo,n_rounds,n_iters", [(217, False, 2, 3), (217, True, 4, 1),
+                                                       (300, True, 3, 0), (256, False, 1, 10)])
+def test_step_counts_match_pallas(n, stereo, n_rounds, n_iters):
+    """The plain version's schedule (one evaluation per step at the trial
+    pose, H/g/cost at P kept) at other step counts, including none (only
+    the re-classification between rounds) and a single step."""
+    arrays, scalars = _problem(n=n, stereo=stereo, seed=5)
+    R, t, inl, chi2 = _run_port(arrays, scalars, n_rounds=n_rounds, n_iters=n_iters)
+    Rj, tj, inlj, chi2j = _run_jax(pose_optimize_fused, arrays, scalars, n_rounds=n_rounds,
+                                   n_iters=n_iters, interpret=True)
+    np.testing.assert_allclose(R, Rj, atol=1e-4)
+    np.testing.assert_allclose(t, tj, atol=1e-3)
+    assert np.mean(inl == inlj) >= 0.99
+    if n_iters == 0:
+        np.testing.assert_allclose(chi2, chi2j, rtol=1e-4)   # f32 residuals
+
+
 @pytest.mark.parametrize("seed", [0, 1])
 def test_chol6_solve_matches_pallas(seed):
     rng = np.random.RandomState(seed)

@@ -78,7 +78,7 @@ def test_process_rgbd_matches_tpuslam(seq):
     bf = seq.fx * 0.08
     cam = [seq.fx, seq.fy, seq.cx, seq.cy]
     tf = Frontend(Pinhole(cam, seq.width, seq.height), OrbConfig(n_features=700),
-                  bf=bf).process_rgbd(img, depth)
+                  bf=bf, device="cpu").process_rgbd(img, depth)
     jf = JFrontend(JPinhole(cam, seq.width, seq.height), JOrbConfig(n_features=700),
                    bf=bf).process_rgbd(img, depth)
 
@@ -110,7 +110,7 @@ def test_slice_matches_tpuslam_rgbd_system(seq):
                 SlamConfig(orb=OrbConfig(n_features=700),
                            tracking=TrackingConfig(min_stereo_init_features=200,
                                                    max_frames_between_kf=3)),
-                sensor=Sensor.RGBD, bf=bf, dtype=torch.float64)
+                sensor=Sensor.RGBD, bf=bf, dtype=torch.float64, device="cpu")
     for i in range(8):
         img, depth = seq.frame_rgbd(i)
         Tj = js.track_rgbd(img, depth, i / seq.fps)
@@ -129,7 +129,7 @@ def test_port_rgbd_gates(seq):
     slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height),
                   SlamConfig(orb=OrbConfig(n_features=700),
                              tracking=TrackingConfig(min_stereo_init_features=200)),
-                  sensor=Sensor.RGBD, bf=seq.fx * 0.08)
+                  sensor=Sensor.RGBD, bf=seq.fx * 0.08, device="cpu")
     for i, t in enumerate(seq.timestamps()):
         slam.track_rgbd(*seq.frame_rgbd(i), t)
     slam.shutdown()

@@ -247,7 +247,7 @@ def test_ba_solve_np_matches_tpuslam(case, monkeypatch):
     if path == "cg":
         monkeypatch.setattr(ba, "CG_MIN_PAIRS", 0)
     Rj, tj, Xj, chi2j, poszj = j_ba.ba_solve_np(*arrays, *cam, n_iters=10)
-    R, t, X, chi2, posz = ba.ba_solve_np(*arrays, *cam, n_iters=10, dtype=td)
+    R, t, X, chi2, posz = ba.ba_solve_np(*arrays, *cam, n_iters=10, device="cpu", dtype=td)
     tol_pose, tol_pt = (1e-6, 1e-5) if dt == "f64" else (2e-4, 2e-3)
     np.testing.assert_allclose(R, Rj, atol=tol_pose)
     np.testing.assert_allclose(t, tj, atol=tol_pose)

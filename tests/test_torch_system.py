@@ -50,7 +50,7 @@ def _port(seq, n_features=700, **kw):
     tc = dict(min_stereo_init_features=200)
     tc.update(kw.pop("tracking", {}))
     cfg = SlamConfig(orb=OrbConfig(n_features=n_features), tracking=TrackingConfig(**tc))
-    return System(cam, cfg, sensor=Sensor.STEREO, bf=seq.fx * seq.baseline, **kw)
+    return System(cam, cfg, sensor=Sensor.STEREO, bf=seq.fx * seq.baseline, device="cpu", **kw)
 
 
 def test_slice_matches_tpuslam_system(seq20):
@@ -163,13 +163,13 @@ def test_unported_parts_raise(what):
     cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
     if what in Sensor.__members__:
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            System(cam, sensor=Sensor[what])
+            System(cam, sensor=Sensor[what], device="cpu")
         return
     if what in ("imu_calib", "Tlr", "camera2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
-            System(cam, **{what: object()})
+            System(cam, device="cpu", **{what: object()})
         return
-    slam = System(cam, sensor=Sensor.MONOCULAR if what == "imu" else Sensor.STEREO)
+    slam = System(cam, sensor=Sensor.MONOCULAR if what == "imu" else Sensor.STEREO, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "checkpoint":
             slam.save_checkpoint("x")

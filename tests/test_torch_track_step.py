@@ -154,6 +154,7 @@ def test_fused_step_on_graft_entry_inputs():
 NO_JAX = r"""
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["tpuslam"] = None
 import numpy as np, torch
 torch.set_num_threads(2)
 import tpuslam_torch
@@ -190,7 +191,7 @@ slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
               SlamConfig(orb=OrbConfig(n_features=500),
                          tracking=TrackingConfig(min_stereo_init_features=200,
                                                  max_frames_between_kf=1)),
-              bf=seq.fx * seq.baseline)
+              bf=seq.fx * seq.baseline, device="cpu")
 for i in range(3):
     slam.track_stereo(seq.frame(i), seq.frame(i, right=True), i / seq.fps)
 assert slam.get_tracking_state().name == "OK" and len(slam.trajectory_tum()) == 3
@@ -199,9 +200,11 @@ assert len(slam.map.valid_kf_ids()) >= 2 and slam.map.map_version >= 1
 from tpuslam_torch.engine.system import Sensor
 from tpuslam_torch.place import train_vocabulary
 rs = np.random.RandomState(0)
-vocab = train_vocabulary((rs.rand(300, 256) > 0.5).astype(np.uint8), k=4, L=2, iters=2)
+vocab = train_vocabulary((rs.rand(300, 256) > 0.5).astype(np.uint8), k=4, L=2, iters=2,
+                         device="cpu")
 mono = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
-              SlamConfig(orb=OrbConfig(n_features=500)), sensor=Sensor.MONOCULAR, vocab=vocab)
+              SlamConfig(orb=OrbConfig(n_features=500)), sensor=Sensor.MONOCULAR, vocab=vocab,
+              device="cpu")
 seq_m = SyntheticSequence(n_frames=4, fps=10, speed=0.5)
 for i in range(4):
     mono.track_monocular(seq_m.frame(i), i / 10)
@@ -209,16 +212,17 @@ assert mono.get_tracking_state().name == "OK" and len(mono.loop_closer.kf_bow) >
 rgbd = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
               SlamConfig(orb=OrbConfig(n_features=500),
                          tracking=TrackingConfig(min_stereo_init_features=200)),
-              sensor=Sensor.RGBD, bf=seq.fx * 0.08)
+              sensor=Sensor.RGBD, bf=seq.fx * 0.08, device="cpu")
 assert rgbd.track_rgbd(*seq_m.frame_rgbd(0), 0.0) is not None
-assert "jax" not in {k for k, v in sys.modules.items() if v is not None}
+loaded = {k.split(".")[0] for k, v in sys.modules.items() if v is not None}
+assert "jax" not in loaded and "tpuslam" not in loaded
 print("NO_JAX_OK")
 """
 
 
 def test_port_runs_without_jax():
     """The port imports every module and runs (the fused step; the stereo,
-    mono + vocabulary and RGB-D Systems) with jax blocked."""
+    mono + vocabulary and RGB-D Systems) with jax and tpuslam blocked."""
     res = subprocess.run([sys.executable, "-c", NO_JAX], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert res.returncode == 0, res.stderr[-3000:]

@@ -90,7 +90,7 @@ def run():
 
 def test_frontend_process_stereo(run):
     jf = run.feats1
-    tf = Frontend(run.cam, run.cfg.orb, bf=run.bf).process_stereo(*run.frames[1])
+    tf = Frontend(run.cam, run.cfg.orb, bf=run.bf, device="cpu").process_stereo(*run.frames[1])
     for k in FEATURE_FIELDS:
         a, b = getattr(jf, k), getattr(tf, k)
         assert a.shape == b.shape and a.dtype == b.dtype, k
@@ -112,7 +112,7 @@ def test_frontend_process_stereo(run):
 
 def _port_tracker(run, state, last_mp, ref_kf, feats0):
     m = map_from_numpy(*state)
-    tr = Tracker(run.cam, run.cfg, m, None, bf=run.bf)
+    tr = Tracker(run.cam, run.cfg, m, None, bf=run.bf, device="cpu")
     tr.state = State.OK
     tr.ref_kf = tr.last_kf = ref_kf
     tr.last_frame = Frame(feats0, 0.0, 0, R=np.eye(3), t=np.zeros(3), mp=last_mp.copy())
@@ -189,7 +189,7 @@ def test_local_mapper_on_new_keyframe(run):
     for kf in kfs:
         (arrays, feats), recent = run.snap.before[kf]
         m = map_from_numpy(arrays, feats)
-        lm = LocalMapper(run.cam, run.cfg, m, bf=run.bf, dtype=torch.float64)
+        lm = LocalMapper(run.cam, run.cfg, m, bf=run.bf, dtype=torch.float64, device="cpu")
         lm.recent_points = list(recent)
         lm.on_new_keyframe(kf)
         want, _ = run.snap.after[kf]

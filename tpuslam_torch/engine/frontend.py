@@ -17,13 +17,15 @@ import torch
 from ..map.store import FrameFeatures
 from ..ops.orb import OrbExtractor
 from ..ops.stereo import rgbd_to_stereo, sad_refine_pyramid, stereo_match
+from ..utils import DEFAULT_DEVICE, resolve_device
 from .config import OrbConfig
 
 
 class Frontend:
-    def __init__(self, camera, orb_cfg: OrbConfig, bf: float = 0.0, device="cpu"):
+    def __init__(self, camera, orb_cfg: OrbConfig, bf: float = 0.0,
+                 device=DEFAULT_DEVICE):
         self.camera = camera
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.extractor = OrbExtractor(orb_cfg, self.device)
         self.orb_cfg = orb_cfg
         self.bf = bf

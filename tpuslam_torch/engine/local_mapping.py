@@ -3,7 +3,7 @@ tpuslam/engine/local_mapping.py, visual mono / stereo / RGB-D).
 
 The reference's LocalMapping thread (src/LocalMapping.cc): the mapper
 runs once per keyframe, synchronously from the tracker or on the worker
-of tpuslam.parallel.async_mapping.AsyncMapper. Its device work (the fuse
+of parallel/async_mapping.AsyncMapper. Its device work (the fuse
 and triangulation kernels of map_device.py, local BA) runs on the
 mapper's device; the map itself is host state.
 
@@ -30,6 +30,7 @@ import torch
 
 from ..map.store import SlamMap
 from ..solve import ba as B
+from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import GLOBAL_TIMER as T
 from .config import SlamConfig
 from .map_device import FUSE_CHUNK, MAX_TARGETS, MapDeviceKernels
@@ -41,7 +42,7 @@ def _no_lock():
 
 class LocalMapper:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, bf: float = 0.0,
-                 device="cpu", dtype=torch.float32):
+                 device=DEFAULT_DEVICE, dtype=torch.float32):
         """bf > 0 for stereo / RGB-D, 0 for a monocular map (its scale is
         anchored by nothing). device: where the mapping kernels and local
         BA run; dtype: the BA's float type (f32 on the card)."""
@@ -52,7 +53,7 @@ class LocalMapper:
         self.bf = bf
         # set by System when loop closing is wired: told of culled KFs
         self.loop_closer = None
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.recent_points: list[tuple[int, int]] = []  # (mp, created_at_kf)
         self.sf = slam_map.scale_factors
@@ -397,7 +398,7 @@ class LocalMapper:
 
 
 def window_ba(m: SlamMap, camera, camspec, inv_sigma2, bf, window, n_iters: int = 15,
-              abort_check=None, fixed_kfs=None, hold=_no_lock, device="cpu",
+              abort_check=None, fixed_kfs=None, hold=_no_lock, device=DEFAULT_DEVICE,
               dtype=torch.float32):
     """Local BA over an explicit keyframe window (the core of
     Optimizer::LocalBundleAdjustment, Optimizer.cc:1699): optimizes
@@ -409,6 +410,7 @@ def window_ba(m: SlamMap, camera, camspec, inv_sigma2, bf, window, n_iters: int 
     mbAbortBA, LocalMapping.cc:103,283). fixed_kfs: KFs held fixed beyond
     the frontier. hold: lock-context factory — assembly and write-back run
     under the map lock, the LM solves on the snapshot without it."""
+    device = resolve_device(device)
     cam = camera
     fixed_kfs = set(int(k) for k in (fixed_kfs or ()))
     with hold():

@@ -36,6 +36,7 @@ from ..place import BinaryVocabulary, KeyFrameDatabase
 from ..solve import ba as B
 from ..solve.pose_graph import optimize_essential_graph
 from ..solve.sim3 import optimize_sim3, sim3_ransac
+from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import GLOBAL_TIMER as T
 from .config import SlamConfig
 from .local_mapping import window_ba
@@ -47,7 +48,8 @@ def _imu_waits(what):
 
 class LoopCloser:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, vocab: BinaryVocabulary,
-                 fix_scale: bool = False, local_mapper=None, device="cpu",
+                 fix_scale: bool = False, local_mapper=None,
+                 device=DEFAULT_DEVICE,
                  dtype=torch.float32):
         """device: where BoW descent, matching and the solvers run; dtype:
         the solvers' float type (f32 on the card)."""
@@ -58,7 +60,7 @@ class LoopCloser:
         self.db = KeyFrameDatabase(vocab)
         self.fix_scale = fix_scale
         self.local_mapper = local_mapper
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.kf_nodes: dict[int, np.ndarray] = {}
         self.kf_bow: dict[int, dict] = {}
@@ -445,7 +447,7 @@ class LoopCloser:
         # spanning-tree invariant (ref :1048-1050): logged, not raised
         errs = m.check_essential_graph()
         if errs:
-            from tpuslam.utils.verbose import print_mess
+            from ..utils.verbose import print_mess
             print_mess(f"essential-graph invariant violated after loop: {errs[:4]}")
         m.map_version += 1
         self.n_loops_closed += 1

@@ -20,6 +20,7 @@ import torch
 
 from ..ops import match as M
 from ..ops.hamming import hamming_matrix
+from ..utils import DEFAULT_DEVICE, resolve_device
 
 FUSE_CHUNK = 4096  # points per reverse-fuse call (bounds the [T,P,N] masks)
 MAX_TARGETS = 32   # neighbours per fuse / triangulation call
@@ -152,9 +153,10 @@ class MapDeviceKernels:
     """The fuse and triangulation kernels plus the KF cache of one
     LocalMapper, on its device."""
 
-    def __init__(self, camera, sf, fuse_radius: float, n_levels: int, device="cpu"):
+    def __init__(self, camera, sf, fuse_radius: float, n_levels: int,
+                 device=DEFAULT_DEVICE):
         self.camera = camera
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.sf = np.asarray(sf, np.float64)
         self.sf_dev = torch.as_tensor(self.sf.astype(np.float32), device=self.device)
         self.log_sf = float(np.log(self.sf[1]))

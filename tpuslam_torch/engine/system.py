@@ -3,8 +3,8 @@ visual sensors).
 
 Mirrors the reference System (include/System.h:85-189): the constructor
 wires the tracker, the local mapper and, with a vocabulary, the loop
-closer (synchronous, or behind tpuslam.parallel.async_mapping.
-AsyncMapper's worker thread), TrackMonocular / TrackStereo / TrackRGBD,
+closer (synchronous, or behind parallel/async_mapping.AsyncMapper's
+worker thread), TrackMonocular / TrackStereo / TrackRGBD,
 state queries, localization mode, resets, Shutdown (which also joins a
 background global BA) and the trajectory savers. Tracking, mapping and
 loop closing run on one explicit device; the map is host state. The
@@ -22,10 +22,10 @@ import enum
 import numpy as np
 import torch
 
-from tpuslam.parallel.async_mapping import AsyncMapper
-
 from ..core import lie
 from ..map.store import SlamMap
+from ..parallel.async_mapping import AsyncMapper
+from ..utils import DEFAULT_DEVICE, resolve_device
 from .config import SlamConfig
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
@@ -73,14 +73,15 @@ class System:
     def __init__(self, camera, cfg: SlamConfig | None = None,
                  sensor: Sensor = Sensor.STEREO, imu_calib=None, vocab=None,
                  bf: float = 0.0, async_mapping: bool = False, camera2=None, Tlr=None,
-                 device="cpu", dtype=torch.float32):
+                 device=DEFAULT_DEVICE, dtype=torch.float32):
         """vocab: a place.BinaryVocabulary; enables loop closing and BoW
         relocalization (ref: System ctor loads ORBvoc, System.cc:85).
         bf: fx * baseline in pixels (ref Camera.bf) for stereo / RGB-D.
         async_mapping: run local mapping and loop closing on a worker
         thread (the reference's LocalMapping / LoopClosing threads).
         device: where extraction, matching, the solvers, the mapping
-        kernels and BA run ("cuda" for the card); dtype: the solvers' float
+        kernels and BA run: the card by default, "cpu" where asked (without
+        a card the default raises); dtype: the solvers' float
         type (f32, as on the card). The default sensor is STEREO, as the
         port's first System was (tpuslam defaults to MONOCULAR)."""
         if sensor not in (Sensor.MONOCULAR, Sensor.STEREO, Sensor.RGBD):
@@ -93,7 +94,7 @@ class System:
         self.cfg = cfg or SlamConfig()
         self.camera = camera
         self.sensor = sensor
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.map = SlamMap(self.cfg.orb.n_features, scale=self.cfg.orb.scale,
                            n_levels=self.cfg.orb.n_levels)
         mono = sensor == Sensor.MONOCULAR

@@ -12,9 +12,9 @@ gating, ORBmatcher.cc:130). `forward` never waits on the device: no
 threshold, the inlier count and the pose stay device tensors, so a caller
 can chain `pose_in` from the previous step's output.
 
-The kernels on this path are the patch gather (ops/patch_cuda.py, 16
-launches per stereo frame) and the pose LM (solve/pose_opt_cuda.py, 4
-launches per frame).
+The kernels on this path are the patch gather (ops/patch_cuda.py, one
+launch per image: 2 per stereo frame, 1 per mono frame) and the pose LM
+(solve/pose_opt_cuda.py, 4 launches per frame).
 
 `FusedTracker` is the host orchestrator around the step (the local-map
 cache, dispatch, fetch, completion into a tracker Frame); `DeviceFeatures`
@@ -32,14 +32,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from tpuslam.utils.pad import bucket, pad_to
-
 from ..engine.config import OrbConfig, TrackingConfig
 from ..ops import match as M
 from ..ops.hamming import hamming_matrix
 from ..ops.orb import OrbExtractor
 from ..ops.stereo import sad_refine_pyramid, stereo_match
 from ..solve.pose_opt_cuda import pose_optimize_fused
+from ..utils import DEFAULT_DEVICE, resolve_device
+from ..utils.pad import bucket, pad_to
 
 
 def _scatter_drop(n: int, index, src, fill):
@@ -63,7 +63,7 @@ class FusedTrackStep(nn.Module):
 
     def __init__(self, camera, orb_cfg: OrbConfig, tcfg: TrackingConfig,
                  n_levels: int, scale: float, bf: float, stereo: bool,
-                 n_passes: int = 3, device=None):
+                 n_passes: int = 3, device=DEFAULT_DEVICE):
         super().__init__()
         if tcfg.fused_sad != "pyramid":
             raise NotImplementedError("only fused_sad='pyramid' is ported")
@@ -75,6 +75,7 @@ class FusedTrackStep(nn.Module):
         self.bf = float(bf)
         self.stereo = stereo
         self.n_passes = n_passes
+        device = resolve_device(device)
         self.extractor = OrbExtractor(orb_cfg, device)
         sf = torch.tensor((scale ** np.arange(n_levels)).astype(np.float32), device=device)
         self.register_buffer("sf", sf)

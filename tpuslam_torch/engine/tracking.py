@@ -32,14 +32,14 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from tpuslam.utils.pad import pad_to
-
 from ..map.store import FrameFeatures, SlamMap
 from ..ops import match as M
 from ..ops import twoview as TV
 from ..solve import ba as B
 from ..solve.pnp import pnp_ransac
 from ..solve.pose_opt_dispatch import pose_optimize_best as pose_optimize
+from ..utils import DEFAULT_DEVICE, resolve_device
+from ..utils.pad import pad_to
 from ..utils.timing import GLOBAL_TIMER as T
 from .config import SlamConfig
 from .frontend import Frontend
@@ -68,7 +68,8 @@ class Frame:
 
 class Tracker:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
-                 sensor: str = "stereo", bf: float = 0.0, loop_closer=None, device="cpu",
+                 sensor: str = "stereo", bf: float = 0.0, loop_closer=None,
+                 device=DEFAULT_DEVICE,
                  dtype=torch.float32):
         """sensor: "mono", or "stereo" for stereo and RGB-D frames (the
         frame's input decides). dtype: the float type of the two-view,
@@ -79,7 +80,7 @@ class Tracker:
         self.cfg = cfg
         self.map = slam_map
         self.bf = bf
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.dtype = dtype
         self.frontend = Frontend(camera, cfg.orb, bf=bf, device=self.device)
         self.camspec = camera.spec
@@ -178,7 +179,7 @@ class Tracker:
                 and time < self.last_frame.time):
             # timestamps went backwards: broken stream -> reset the active
             # map (ref Tracking.cc:861-868)
-            from tpuslam.utils.verbose import print_mess
+            from ..utils.verbose import print_mess
             print_mess("[tracking] timestamp went backwards: reset")
             self.reset_active_map()
         # fused on-device path: extraction happens INSIDE the fused step

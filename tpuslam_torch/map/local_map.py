@@ -9,14 +9,14 @@ step, with the keyframe at the identity pose:
     (tpuslam/map/store.py) for a single observation: normal = X/|X|,
     max_dist = |X| * sf[octave], min_dist = max_dist / sf[-1];
   - the packing of FusedTracker._rebuild (tpuslam/engine/track_device.py),
-    padded to the P bucket with tpuslam.utils.pad.
+    padded to the P bucket with utils/pad.py.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tpuslam.utils.pad import bucket, pad_to
+from ..utils.pad import bucket, pad_to
 
 
 def stereo_local_map(feats_np, fx, fy, cx, cy, scale_factors, p_base: int = 2048):

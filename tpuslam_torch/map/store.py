@@ -20,7 +20,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from tpuslam.native import NativeObsIndex
+from ..native import NativeObsIndex
 
 
 

@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils import DEFAULT_DEVICE, resolve_device
 from .hamming import hamming_matrix
 
 TH_LOW = 50
@@ -132,9 +133,10 @@ def match(bits_a, bits_b, mask, max_dist: int = TH_LOW, nn_ratio: float | None =
 
 
 def match_padded(bits_a, bits_b, mask, ang_a=None, ang_b=None, oct_b=None,
-                 device="cpu", **kw):
+                 device=DEFAULT_DEVICE, **kw):
     """Numpy-facing matcher: uploads the inputs to `device`, runs `match`
     and returns numpy (match_idx [N] int32 or -1, dist [N] int32)."""
+    device = resolve_device(device)
     n = len(bits_a)
     if n == 0 or len(bits_b) == 0:
         return np.full(n, -1, np.int32), np.full(n, BIG, np.int32)

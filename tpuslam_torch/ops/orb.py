@@ -21,7 +21,7 @@ from torch import nn
 from ..engine.config import OrbConfig
 from .fast import _border_mask, cell_threshold_gate, fast_score, nms3x3
 from .image import build_pyramid, gaussian_blur, gaussian_kernel1d
-from .patch_cuda import extract_patches
+from .patch_cuda import extract_patches_levels
 
 HALF_PATCH = 15  # IC-angle circular patch radius (ref: ORBextractor.cc:70 PATCH_SIZE 31)
 DESC_R = 18      # descriptor patch radius: 13*sqrt(2) ~ 18.4 rounded in
@@ -104,13 +104,6 @@ def _select_level_keypoints(score, budget: int, cell: int):
     return xy, resp
 
 
-def _level_patches(blur_padded, xy):
-    """[K, 37, 37] descriptor-radius patches of one level (the 31x31
-    IC-angle window sits at offset +3 inside): the patch-gather kernel."""
-    yx0 = torch.stack([xy[:, 1], xy[:, 0]], dim=-1) + (PAD - DESC_R)
-    return extract_patches(blur_padded, yx0.contiguous(), 2 * DESC_R + 1)
-
-
 def _ic_angles_from_patches(p37, ic_x, ic_y):
     """Intensity-centroid angle (rad) from [K,37,37] patches, f32 sums
     (ref: ORBextractor.cc:75 IC_Angle)."""
@@ -173,10 +166,11 @@ class OrbExtractor(nn.Module):
     def forward(self, img):
         cfg = self.cfg
         levels = build_pyramid(img.float(), cfg.n_levels, cfg.scale)
-        out = {"xy": [], "resp": [], "angle": [], "octave": [], "size": []}
-        patches = []
-        for l, (im, budget, sc) in enumerate(
-                zip(levels, cfg.level_budgets(), cfg.level_scales())):
+        budgets = cfg.level_budgets()
+        out = {"xy": [], "resp": [], "octave": [], "size": []}
+        padded, corners = [], []
+        # per level: FAST, cell gate, NMS, selection, blur and pad
+        for l, (im, budget, sc) in enumerate(zip(levels, budgets, cfg.level_scales())):
             score = fast_score(im)
             score = cell_threshold_gate(score, cfg.ini_th, cfg.min_th, cell=cfg.th_cell)
             score = nms3x3(score)
@@ -185,19 +179,24 @@ class OrbExtractor(nn.Module):
             score = torch.where(_border_mask(h, w, HALF_PATCH + 1, im.device), score, 0.0)
             xy, resp = _select_level_keypoints(score, budget, cfg.cell)
             blur = gaussian_blur(im, self.gauss_taps)
-            pad_blur = F.pad(blur[None, None], (PAD,) * 4, mode="replicate")[0, 0]
-            p37 = _level_patches(pad_blur, xy)
-            patches.append(p37.reshape(p37.shape[0], -1))
+            padded.append(F.pad(blur[None, None], (PAD,) * 4, mode="replicate")[0, 0])
+            corners.append(torch.stack([xy[:, 1], xy[:, 0]], dim=-1) + (PAD - DESC_R))
             out["xy"].append(xy.float() * sc)
             out["resp"].append(resp)
-            out["angle"].append(_ic_angles_from_patches(p37, self.ic_x, self.ic_y))
             out["octave"].append(torch.full((budget,), l, dtype=torch.int32,
                                             device=img.device))
             out["size"].append(torch.full((budget,), 31.0 * sc, dtype=torch.float32,
                                           device=img.device))
-        res = {k: torch.cat(v, dim=0) for k, v in out.items()}
-        # one LUT matmul for every level's keypoints
-        res["bits"] = _descriptors_from_patches(torch.cat(patches, dim=0),
+        # then every level's [K, 37, 37] descriptor-radius patches (the 31x31
+        # IC-angle window sits at offset +3 inside) in one patch gather, one
+        # IC-angle pass and one LUT matmul over all keypoints
+        p37 = extract_patches_levels(padded, torch.cat(corners, dim=0).contiguous(), budgets,
+                                     2 * DESC_R + 1)
+        res = {"xy": torch.cat(out["xy"], dim=0), "resp": torch.cat(out["resp"], dim=0),
+               "angle": _ic_angles_from_patches(p37, self.ic_x, self.ic_y)}
+        res["octave"] = torch.cat(out["octave"], dim=0)
+        res["size"] = torch.cat(out["size"], dim=0)
+        res["bits"] = _descriptors_from_patches(p37.reshape(p37.shape[0], -1),
                                                 res["angle"], self.desc_lut)
         res["valid"] = res["resp"] > 0
         res["packed"] = pack_bits(res["bits"])

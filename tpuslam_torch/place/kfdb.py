@@ -3,17 +3,17 @@ tpuslam/place/kfdb.py; ref: src/KeyFrameDatabase.cc — add :39, shared-word
 counting with the 0.8 * max cutoff, covisibility-group score accumulation,
 DetectNBestCandidates :612, DetectRelocalizationCandidates :783).
 
-The inverted file, shared-word histogram and L1 scoring run in the repo's
-native C++ core (tpuslam.native, shared with tpuslam) when it builds, a
-pure-Python structure otherwise; the candidate policy is host control
-flow.
+The inverted file, shared-word histogram and L1 scoring run in the port's
+native C++ core (tpuslam_torch/native, a copy of tpuslam's) when g++ can
+build it, a pure-Python structure otherwise; the candidate policy is host
+control flow.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from tpuslam.native import NativeInvIndex, available
+from ..native import NativeInvIndex, available
 
 from .vocab import BinaryVocabulary
 

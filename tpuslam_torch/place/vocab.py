@@ -18,6 +18,8 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ..utils import DEFAULT_DEVICE, resolve_device
+
 
 def _hamming01(a, b):
     """Hamming distance between {0,1} rows: a [N,256], b [M,256] -> [N,M]
@@ -35,7 +37,7 @@ def _assign(descs, centers, device):
     return torch.argmin(d, dim=-1).cpu().numpy()
 
 
-def _kmajority(descs: np.ndarray, k: int, rng, iters: int = 8, device="cpu"):
+def _kmajority(descs: np.ndarray, k: int, rng, iters: int = 8, device=DEFAULT_DEVICE):
     """k-majority clustering of binary descriptors (DBoW2's meanValue =
     bitwise majority). Returns (centers [k,256], assign [M])."""
     M = len(descs)
@@ -77,11 +79,12 @@ class BinaryVocabulary:
                               for d in self.level_descs]
         return self._dev[key]
 
-    def transform(self, bits: np.ndarray, valid: np.ndarray, device="cpu"):
+    def transform(self, bits: np.ndarray, valid: np.ndarray, device=DEFAULT_DEVICE):
         """bits [N,256] u8 -> (word_ids [N], node_ids [N], bow dict), the
         descent on `device`. word = leaf index; node = the ancestor at
         node_level (for node-aligned matching, ref ORBmatcher.cc:289-297).
         Invalid rows get -1."""
+        device = resolve_device(device)
         levels = self._levels(device)
         q = torch.as_tensor(np.asarray(bits, np.uint8), device=device)
         ids = torch.zeros(q.shape[0], dtype=torch.int64, device=device)
@@ -119,10 +122,11 @@ class BinaryVocabulary:
 
 def train_vocabulary(descs: np.ndarray, k: int = 10, L: int = 3, seed: int = 0,
                      node_levels_up: int = 2, iters: int = 8,
-                     device="cpu") -> BinaryVocabulary:
+                     device=DEFAULT_DEVICE) -> BinaryVocabulary:
     """Recursive k-majority training (ref TemplatedVocabulary::create).
     descs: [M,256] {0,1} u8 training descriptors; node level =
     L - 1 - node_levels_up. The assignments run on `device`."""
+    device = resolve_device(device)
     rng = np.random.RandomState(seed)
     level_descs = []
     groups = {(): descs}

@@ -32,6 +32,7 @@ import torch
 from ..core import lie
 from ..core.linalg import spd_solve
 from ..core.robust import CHI2_MONO, CHI2_STEREO, huber_cost, huber_weight
+from ..utils import DEFAULT_DEVICE, resolve_device
 from .reproj import PINHOLE, project_residuals
 from .schur_cg import _scatter_add, pcg_solve
 
@@ -249,9 +250,10 @@ def ba_chi2(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, fx, fy, cx, cy, bf
 
 def ba_solve_np(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed,
                 fx, fy, cx, cy, bf, n_iters=10, robust=True, cam=PINHOLE,
-                device="cpu", dtype=torch.float32):
+                device=DEFAULT_DEVICE, dtype=torch.float32):
     """Numpy-facing BA on `device` in `dtype`. Returns numpy (R, t, X,
     chi2 [O], pos_depth [O]) with chi2 evaluated at the solution."""
+    device = resolve_device(device)
     P = len(X)
     obs_pt = np.asarray(obs_pt)
     deg = np.bincount(obs_pt, minlength=P).astype(np.int64)

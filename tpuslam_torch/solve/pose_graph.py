@@ -22,6 +22,7 @@ import torch
 
 from ..core.lie import sim3_compose, sim3_exp, sim3_inverse, sim3_log
 from ..core.linalg import spd_solve
+from ..utils import DEFAULT_DEVICE, resolve_device
 
 
 def _index_add(n, index, src):
@@ -144,7 +145,7 @@ def pose_graph_solve(s, R, t, edges_i, edges_j, s_m, R_m, t_m, edge_w, fixed,
 
 def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool = False,
                              min_covis_weight=100, n_iters: int = 20, old_poses=None,
-                             four_dof: bool = False, fix_kfs=None, device="cpu",
+                             four_dof: bool = False, fix_kfs=None, device=DEFAULT_DEVICE,
                              dtype=torch.float64):
     """Host-side graph assembly + solve over the map `m` (ref
     OptimizeEssentialGraph edge selection: loop edges + spanning tree +
@@ -160,6 +161,7 @@ def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool =
     if four_dof:
         raise NotImplementedError(
             "the 4-DoF inertial essential graph is ROADMAP item 'the IMU stack'")
+    device = resolve_device(device)
     kfs = list(m.valid_kf_ids())
     idx = {int(k): i for i, k in enumerate(kfs)}
     K = len(kfs)

@@ -2,12 +2,16 @@
 (port of tpuslam/solve/pose_opt_pallas.py; ref: src/Optimizer.cc:854-1168).
 
 `pose_optimize_fused` launches the CUDA kernel of csrc/pose_opt.cu on CUDA
-tensors and runs `pose_optimize_plain` on CPU tensors. The plain version
-follows the Pallas kernel step for step: 4 rounds x <= 10 LM steps, Huber
-weights in every round but the last, a Jacobi-scaled damped 6x6 Cholesky
-with the kernel's 1e-30/1e-7/1e-20 guards and no iterative refinement, the
-1e-6 depth guard, acceptance on the sum of per-observation cost deltas,
-and chi2 re-classification between rounds. Its early exit is written as a
+tensors and runs `pose_optimize_plain` on CPU tensors. Both compute what
+the Pallas kernel computes: 4 rounds x <= 10 LM steps, Huber weights in
+every round but the last, a Jacobi-scaled damped 6x6 Cholesky with the
+kernel's 1e-30/1e-7/1e-20 guards and no iterative refinement, the 1e-6
+depth guard, acceptance on the sum of per-observation cost deltas, and
+chi2 re-classification between rounds. Both follow the CUDA kernel's
+schedule: one evaluation per LM step, at the trial pose, with the cost
+terms, H and g at the current pose kept from the evaluation that produced
+it (the arithmetic of the Pallas kernel, which evaluates at both poses;
+only the order of the sums differs). The plain version's early exit is a
 mask over a fixed number of steps, so it never waits on the device.
 """
 
@@ -86,9 +90,17 @@ def _se3_exp(dx):
 
 def pose_optimize_plain(R0, t0, X, uvr, inv_sigma2, is_stereo, valid,
                         fx, fy, cx, cy, bf, n_rounds: int = 4, n_iters: int = 10,
-                        damping: float = 1e-4, step_tol: float = 1e-16):
-    """Plain PyTorch version of the fused pose LM. Returns
-    (R [3,3], t [3], inliers [N] bool, chi2 [N])."""
+                        damping: float = 1e-4, step_tol: float = 1e-16, *, rounds=None):
+    """Plain PyTorch version of the fused pose LM, on the kernel's
+    schedule: each round starts with one evaluation at P (after the chi2
+    re-classification, in rounds after the first); each step evaluates the
+    cost terms, H and g once, at the trial pose Pn, and keeps those at P
+    for the accept test and for a rejected step. Returns (R [3,3], t [3],
+    inliers [N] bool, chi2 [N]).
+
+    rounds: a list to which each round appends the work a measurement
+    counts (reading it waits for the device): {"steps": its LM steps,
+    "mono": and "stereo": its observations in use}."""
     f32 = torch.float32
     dev = X.device
     X = X.to(f32)
@@ -102,16 +114,14 @@ def pose_optimize_plain(R0, t0, X, uvr, inv_sigma2, is_stereo, valid,
     def res(P):
         return _residuals(P, X, uvr, smask, info, *cam)
 
-    def cost_terms(P, use, robust):
-        _, _, z, _, _, _, _, _, chi2 = res(P)
+    def evaluate(r, use, robust):
+        """Cost terms [N], H [6,6] and g [6] from the residual terms r."""
+        x, y, z, iz, iz2, ru, rv, rur, chi2 = r
         c = chi2
         if robust:
             e = torch.sqrt(torch.clamp(chi2, min=0.0))
             c = torch.where(chi2 <= chi2_th, chi2, 2.0 * torch.sqrt(chi2_th) * e - chi2_th)
-        return torch.where((z > 0) & (use > 0.5), c, 0.0)
-
-    def gn_step(P, lam, use, robust):
-        x, y, z, iz, iz2, ru, rv, rur, chi2 = res(P)
+        c = torch.where((z > 0) & (use > 0.5), c, 0.0)
         w = torch.ones_like(chi2)
         if robust:
             w = torch.clamp(torch.sqrt(chi2_th) / torch.sqrt(torch.clamp(chi2, min=1e-12)),
@@ -132,6 +142,9 @@ def pose_optimize_plain(R0, t0, X, uvr, inv_sigma2, is_stereo, valid,
              + (ws[:, None] * Jur).T @ Jur)
         g = -((w * ru)[:, None] * Ju + (w * rv)[:, None] * Jv
               + (ws * rur)[:, None] * Jur).sum(dim=0)
+        return c, H, g
+
+    def trial(P, H, g, lam):
         dx = _chol6_solve(H, g, lam)
         dR, dt = _se3_exp(dx)
         Rn = dR @ P[:9].reshape(3, 3)
@@ -143,20 +156,31 @@ def pose_optimize_plain(R0, t0, X, uvr, inv_sigma2, is_stereo, valid,
     inf = torch.full((), float("inf"), dtype=f32, device=dev)
     for rnd in range(n_rounds):
         robust = rnd < n_rounds - 1
+        r = res(P)
+        if rnd > 0:  # chi2 re-classification at the round's start pose
+            use = vmask * ((r[8] <= chi2_th) & (r[2] > 0)).to(f32)
+        c, H, g = evaluate(r, use, robust)
         lam = torch.full((), damping, dtype=f32, device=dev)
         sq = inf
         active = torch.ones((), dtype=torch.bool, device=dev)
+        n_active = torch.zeros((), dtype=torch.int64, device=dev)
         for _ in range(n_iters):
             active = active & (sq > step_tol)
-            Pn, sq_step = gn_step(P, lam, use, robust)
-            delta = (cost_terms(Pn, use, robust) - cost_terms(P, use, robust)).sum()
-            accept = delta < 0
-            P = torch.where(active & accept, Pn, P)
+            n_active = n_active + active
+            Pn, sq_step = trial(P, H, g, lam)
+            cn, Hn, gn = evaluate(res(Pn), use, robust)
+            accept = (cn - c).sum() < 0
+            take = active & accept
+            P = torch.where(take, Pn, P)
+            H = torch.where(take, Hn, H)
+            g = torch.where(take, gn, g)
+            c = torch.where(take, cn, c)
             lam_next = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-7, 1e2)
             lam = torch.where(active, lam_next, lam)
             sq = torch.where(active, torch.where(accept, sq_step, inf), sq)
-        _, _, z, _, _, _, _, _, chi2 = res(P)
-        use = vmask * ((chi2 <= chi2_th) & (z > 0)).to(f32)
+        if rounds is not None:
+            rounds.append({"steps": int(n_active), "mono": int((use * (1.0 - smask)).sum()),
+                           "stereo": int((use * smask).sum())})
     _, _, z, _, _, _, _, _, chi2 = res(P)
     inliers = valid & (chi2 <= chi2_th) & (z > 0)
     return P[:9].reshape(3, 3), P[9:], inliers, chi2

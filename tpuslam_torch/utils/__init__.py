@@ -4,6 +4,20 @@ from __future__ import annotations
 
 import torch
 
+# Every entry point of the port runs on the card unless its caller passes
+# another device (the CPU tests pass device="cpu").
+DEFAULT_DEVICE = "cuda"
+
+
+def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
+    """torch.device(device); a CUDA device on a machine without a card
+    raises here instead of failing later or running on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(dev)!r} needs a CUDA card and none is available; "
+                           "pass device='cpu' to run on the CPU")
+    return dev
+
 
 def device_const(values, dtype, device):
     """A 1-D tensor of host values made on `device` by fill kernels, so no
