@@ -49,7 +49,18 @@ Phases, each raising on failure:
   6. System.track_rgbd over 40 frames of rendered image + exact depth:
      OK, unscaled ATE under 5 cm, Horn scale within 3 % of 1, a pose-LM
      launch on every frame (RGB-D frames take the host path), patch-gather
-     launches.
+     launches;
+  7. mono-inertial: System.track_monocular(..., imu=) on an IMU_MONOCULAR
+     System over the sequence of tests/test_e2e_mono_inertial.py at
+     752x480 (vi_excite, 55 frames at 10 fps, 0.5 m/s, IMU at 200 Hz, its
+     ImuCalib noise, a keyframe at least every 3 frames), its pixel radii
+     scaled by the width ratio, the solvers in f32: the IMU must
+     initialize and the run end OK, with a Horn scale within 0.4 of 1, a
+     scaled ATE under 6 cm, a gravity-aligned world (|R[2, 2]| > 0.99), a
+     median keyframe-velocity error under 0.2 m/s and no mapper errors;
+     frames before the init take the host path (pose-LM launches), frames
+     after it the fused visual-inertial step: 1 patch-gather and 4 pose-LM
+     launches, then pose_inertial_solve (its calls per frame counted).
 The last lines are the kernels' JSON record (with launches by path and
 per frame), the nvidia-smi line and {"ok": true, "device": {...}}. Needs
 one CUDA card; fails without one.
@@ -95,6 +106,8 @@ N_LOOP = 92            # phase 5: the loop sequence of tests/test_e2e_loop.py
 LOOP_HOST_PATH = range(20, 25)  # phase 5: frames tracked by the host path
 CIRCUMFERENCE = 2 * np.pi * 1.6
 N_RGBD = 40            # phase 6
+N_VI = 55              # phase 7: the frames of tests/test_e2e_mono_inertial.py
+VI_NOISE = dict(noise_gyro=1e-4, noise_acc=1e-3, walk_gyro=1e-6, walk_acc=1e-5)
 
 
 def log(*a):
@@ -800,8 +813,113 @@ def phase_rgbd(dev, smi):
     return launches
 
 
+def phase_mono_vi(dev, smi):
+    """System.track_monocular(..., imu=) on an IMU_MONOCULAR System over the
+    sequence of tests/test_e2e_mono_inertial.py at full width; returns the
+    launch counts."""
+    import torch
+
+    from tpuslam_torch.cameras import Pinhole
+    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+    from tpuslam_torch.engine.system import Sensor, System
+    from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.imu.preintegration import ImuCalib
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    seq = SyntheticSequence(n_frames=N_VI, fps=10, speed=0.5, imu_rate=200.0, kind="vi_excite",
+                            height=H, width=W, fx=FX, fy=FY)
+    t0 = time.perf_counter()
+    frames = [u8(seq.frame(i)) for i in range(N_VI)]
+    times = seq.timestamps()
+    imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
+                    for i in range(1, N_VI)]
+    log(f"[mono_vi] rendered {N_VI} frames {W}x{H} and {sum(len(x) for x in imu[1:])} IMU "
+        f"samples in {time.perf_counter() - t0:.1f} s (host)")
+    # the test's configuration, its pixel radii (the motion-model radius and
+    # the two-view init window, defaults there) scaled by the width ratio
+    base = TrackingConfig()
+    cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
+                     tracking=TrackingConfig(max_frames_between_kf=3,
+                                             motion_model_radius=base.motion_model_radius * W
+                                             / 376.0,
+                                             init_window=base.init_window * W / 376.0))
+    slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.IMU_MONOCULAR,
+                  imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate), device=dev)
+    GLOBAL_TIMER.samples.clear()
+    patch_cuda.counter.launches = 0
+    pose_opt_cuda.counter.launches = 0
+    wall, rows = [], []
+
+    def counts():
+        # kernel launches, then the tracker's timed stages: one
+        # "pose_inertial" sample per pose-inertial solve (plain torch)
+        return (patch_cuda.counter.launches, pose_opt_cuda.counter.launches,
+                *(len(GLOBAL_TIMER.samples.get(s, []))
+                  for s in ("pose_inertial", "track_fused_vi", "track")))
+
+    for i in range(N_VI):
+        before = counts()
+        initialized = slam.map.imu_initialized
+        t1 = time.perf_counter()
+        slam.track_monocular(frames[i], times[i], imu=imu[i])
+        wall.append((time.perf_counter() - t1) * 1e3)
+        rows.append(dict(initialized=initialized,
+                         **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
+                                    (a - b for a, b in zip(counts(), before))))))
+    slam.shutdown()
+    torch.cuda.synchronize()
+    launches = {"patch_gather": patch_cuda.counter.launches,
+                "pose_lm": pose_opt_cuda.counter.launches}
+    m = slam.map
+    traj = slam.trajectory_tum()
+    est = np.array([r[1:4] for r in traj])
+    gt = gt_centers(seq, traj)
+    rmse, scale = ate(est, gt, True)
+    R, _, s = horn_align(est, gt, True)
+    vel_err = float(np.median([np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
+                               for k in m.valid_kf_ids()]))
+    steady = np.array(wall[WARMUP:])
+    fused = [r for r in rows if r["fused_vi"] and not r["host"]]
+    host_pre = [r for r in rows if not r["initialized"] and r["host"]]
+    init_frame = next((i for i, r in enumerate(rows[1:], 1) if r["initialized"]), -1) - 1
+    log(f"[mono_vi] state {slam.get_tracking_state().name}, IMU initialized "
+        f"{m.imu_initialized} (after frame {init_frame}), {len(m.valid_kf_ids())} KFs, "
+        f"{int(m.mp_valid[: m.n_mp].sum())} map points, {len(traj)} trajectory rows, Horn scale "
+        f"{scale:.5f}, scaled ATE {rmse * 100:.3f} cm, |R[2,2]| {abs(R[2, 2]):.6f}, median "
+        f"KF velocity error {vel_err:.4f} m/s")
+    log(f"[mono_vi] track_monocular wall ms over frames {WARMUP}..{N_VI - 1}: median "
+        f"{np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max {steady.max():.3f}; "
+        f"card {smi}")
+    stage_table("mono_vi", GLOBAL_TIMER)
+    log(f"[mono_vi] launches {launches}; fused VI frames {len(fused)} (patch gather "
+        f"{sorted(set(r['patch'] for r in fused))}, pose LM {sorted(set(r['pose'] for r in fused))}"
+        f" per frame), pose_inertial_solve calls per fused VI frame "
+        f"{sorted(set(r['vi_solves'] for r in fused))}, per frame after the init "
+        f"{np.mean([r['vi_solves'] for r in rows if r['initialized']] or [0.0]):.3f}; host-path "
+        f"frames before the init {len(host_pre)}, pose LM launches there "
+        f"{sum(r['pose'] for r in host_pre)}")
+    check(m.imu_initialized, "mono_vi: the IMU never initialized")
+    check(slam.get_tracking_state() == State.OK, "mono_vi: final state not OK")
+    check(len(traj) >= N_VI - 10 and np.isfinite(est).all(), "mono_vi: trajectory")
+    check(abs(scale - 1.0) < 0.4 and rmse < 0.06, f"mono_vi: Horn scale {scale}, ATE {rmse}")
+    check(abs(R[2, 2]) > 0.99, f"mono_vi: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(vel_err < 0.2, f"mono_vi: median KF velocity error {vel_err}")
+    check(slam.async_mapper is None or not slam.async_mapper.errors, "mono_vi: mapper errors")
+    check(len(fused) >= 1, "mono_vi: no frame took the fused visual-inertial step")
+    check(all(r["patch"] == 1 and r["pose"] == 4 and r["vi_solves"] >= 1 for r in fused),
+          "mono_vi: a fused VI frame did not make 1 patch-gather and 4 pose-LM launches and a "
+          "pose-inertial solve")
+    check(sum(r["pose"] for r in host_pre) > 0, "mono_vi: no pose LM on the host path before init")
+    return launches
+
+
 def main():
     import torch
+
+    t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -846,13 +964,16 @@ def main():
     del frames
     by_path["mono_loop"] = phase_mono_loop(dev, smi)
     by_path["rgbd"] = phase_rgbd(dev, smi)
+    by_path["mono_vi"] = phase_mono_vi(dev, smi)
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
-                      "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD}
+                      "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD,
+                      "mono_vi": N_VI}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}
         r["launches_per_frame"] = {k: c[r["name"]] / frames_by_path[k]
                                    for k, c in by_path.items()}
+    log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -376,7 +376,8 @@ def _carried_map(rng, n_kf=8, P=80):
 def test_essential_graph_on_carried_map(rng, fix_scale):
     """optimize_essential_graph on a tpuslam map and on its carried copy,
     with a loop edge last <- first, corrected seeds and old poses: the
-    returned Sim3 per KF and the written poses to 1e-9 (f64)."""
+    returned Sim3 per KF and the written poses to 1e-9 (f64); then the
+    4-DoF graph of an inertial map on fresh copies, poses to 1e-9."""
     jm, tm_ = _carried_map(rng)
     kfs = [int(k) for k in jm.valid_kf_ids()]
     meas = (1.0, jm.kf_R[kfs[-1]] @ jm.kf_R[0].T,
@@ -394,6 +395,13 @@ def test_essential_graph_on_carried_map(rng, fix_scale):
             close(a, b, 1e-9)
     close(tm_.kf_R[: tm_.n_kf], jm.kf_R[: jm.n_kf], 1e-9)
     close(tm_.kf_t[: tm_.n_kf], jm.kf_t[: jm.n_kf], 1e-9)
-    with pytest.raises(NotImplementedError, match="ROADMAP item 'the IMU stack'"):
-        G.optimize_essential_graph(tm_, [], {}, 0, four_dof=True)
+    # the inertial map's 4-DoF graph (yaw + translation) on fresh copies
+    jm, tm_ = _carried_map(np.random.RandomState(5))
+    corrected = {k: (1.0, R, t) for k, (_, R, t) in corrected.items()}
+    oj = JG.optimize_essential_graph(jm, [(0, kfs[-1], meas)], corrected, 0, four_dof=True, **kw)
+    ot = G.optimize_essential_graph(tm_, [(0, kfs[-1], meas)], corrected, 0, four_dof=True,
+                                    device="cpu", **kw)
+    assert sorted(oj) == sorted(ot) == kfs
+    close(tm_.kf_R[: tm_.n_kf], jm.kf_R[: jm.n_kf], 1e-9)
+    close(tm_.kf_t[: tm_.n_kf], jm.kf_t[: jm.n_kf], 1e-9)
 

@@ -443,8 +443,15 @@ def test_window_ba_abort_skips_second_phase(monkeypatch):
 
 
 def test_unported_loop_routes_raise():
+    """The inertial GBA is ported: on an IMU-initialized map the snapshot is
+    tpuslam's, the visual one when the mapper has no ImuCalib and the VI
+    one (FullInertialBA) with it. Only the distributed GBA of a process
+    group of more than one rank still raises (ROADMAP item
+    'distribution')."""
+    jm = _noisy_map(j_store, np.random.RandomState(6))
     m = _noisy_map(t_store, np.random.RandomState(6))
-    lc = _closer(True, m, background=False)
-    m.imu_initialized = True
-    with pytest.raises(NotImplementedError, match="ROADMAP item 'the IMU stack'"):
-        lc._snapshot_gba(fix_kf=0)
+    jlc, lc = _closer(False, jm, background=False), _closer(True, m, background=False)
+    jm.imu_initialized = m.imu_initialized = True
+    jsnap, snap = jlc._snapshot_gba(fix_kf=0), lc._snapshot_gba(fix_kf=0)
+    assert snap.get("kind") == jsnap.get("kind") is None
+    assert np.array_equal(snap["kfs"], jsnap["kfs"])

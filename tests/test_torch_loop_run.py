@@ -122,12 +122,21 @@ def test_async_mapper_with_loop_closer_state_after_flush():
         slam.track_monocular(seq.frame(i), t)
     slam.async_mapper.flush()                        # raises a worker error
     slam.shutdown()
+    # only what flush() makes deterministic: the tracking state and the map's
+    # size race with the mapper thread (a run under load has ended
+    # RECENTLY_LOST), the worker's outcome and the map's invariants do not
     assert slam.async_mapper.errors == []
     assert not slam.async_mapper.worker.is_alive()
-    assert slam.get_tracking_state() == State.OK
     m = slam.map
-    assert len(m.valid_kf_ids()) >= 3 and m.mp_valid[: m.n_mp].sum() > 100
+    for j in m.valid_mp_ids():
+        for kf, slot in m.mp_obs[int(j)].items():
+            assert m.kf_mp[kf, slot] == j and m.kf_valid[kf]
+    for k in m.valid_kf_ids():
+        for s in np.nonzero(m.kf_mp[k] >= 0)[0]:
+            j = int(m.kf_mp[k, s])
+            assert m.mp_valid[j] and m.mp_obs[j].get(int(k)) == s
     # every live keyframe went through the closer (a keyframe culled while
     # still queued is transformed too, as in tpuslam; candidates skip it)
+    assert slam.loop_closer.kf_bow
     assert set(int(k) for k in m.valid_kf_ids()) <= set(slam.loop_closer.kf_bow)
     assert m.check_essential_graph() == []

@@ -101,6 +101,21 @@ def _entry(name):
                            200.0, 200.0, 100.0, 100.0, 0.0, n_iters=1)
     if name == "optimize_essential_graph":
         return optimize_essential_graph(SlamMap(64), [], {}, 0)
+    if name in ("preintegrate_window", "run_imu_init", "window_inertial_ba", "full_inertial_ba",
+                "local_inertial_ba"):
+        from tpuslam_torch.engine import inertial
+        from tpuslam_torch.imu.preintegration import ImuCalib
+
+        fn = getattr(inertial, name)
+        if name == "preintegrate_window":
+            return fn(np.zeros((0, 7)), 0.0, 0.1, np.zeros(3), np.zeros(3), ImuCalib())
+        if name == "run_imu_init":
+            return fn(SlamMap(64), ImuCalib())
+        if name == "local_inertial_ba":
+            return fn(SlamMap(64), 0, _cam(), ImuCalib(), np.ones(8))
+        if name == "full_inertial_ba":
+            return fn(SlamMap(64), _cam(), ImuCalib(), np.ones(8))
+        return fn(SlamMap(64), _cam(), ImuCalib(), np.ones(8), [], [])
     if name == "match_padded":
         return match_padded(np.zeros((0, 32), np.uint8), np.zeros((3, 32), np.uint8),
                             np.zeros((0, 3), bool))
@@ -110,7 +125,9 @@ def _entry(name):
 @pytest.mark.parametrize("name", ["System", "Tracker", "LocalMapper", "LoopCloser", "Frontend",
                                   "MapDeviceKernels", "FusedTrackStep", "train_vocabulary",
                                   "BinaryVocabulary.transform", "window_ba", "ba_solve_np",
-                                  "optimize_essential_graph", "match_padded"])
+                                  "optimize_essential_graph", "match_padded",
+                                  "preintegrate_window", "run_imu_init", "window_inertial_ba",
+                                  "full_inertial_ba", "local_inertial_ba"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         obj = _entry(name)

@@ -29,6 +29,7 @@ from tpuslam_torch.cameras import Pinhole
 from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
 from tpuslam_torch.engine.system import Sensor, System
 from tpuslam_torch.engine.tracking import State
+from tpuslam_torch.imu.preintegration import ImuCalib
 from tpuslam_torch.io.synthetic import SyntheticSequence
 
 torch.set_num_threads(2)
@@ -157,23 +158,48 @@ def test_modes_and_resets(seq20):
     assert slam.tracker.trajectory == [] and slam.map.mp_valid.sum() == 0
 
 
-@pytest.mark.parametrize("what", ["IMU_MONOCULAR", "imu_calib", "IMU_STEREO", "Tlr", "camera2",
-                                  "checkpoint", "load_checkpoint", "imu"])
+@pytest.mark.parametrize("what", ["Tlr", "camera2", "checkpoint", "load_checkpoint"])
 def test_unported_parts_raise(what):
     cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
-    if what in Sensor.__members__:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            System(cam, sensor=Sensor[what], device="cpu")
-        return
-    if what in ("imu_calib", "Tlr", "camera2"):
+    if what in ("Tlr", "camera2"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             System(cam, device="cpu", **{what: object()})
         return
-    slam = System(cam, sensor=Sensor.MONOCULAR if what == "imu" else Sensor.STEREO, device="cpu")
+    slam = System(cam, sensor=Sensor.STEREO, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         if what == "checkpoint":
             slam.save_checkpoint("x")
-        elif what == "load_checkpoint":
-            slam.load_checkpoint("x")
         else:
-            slam.track_monocular(np.zeros((240, 376)), 0.0, imu=np.zeros((3, 7)))
+            slam.load_checkpoint("x")
+
+
+@pytest.mark.parametrize("what", ["IMU_MONOCULAR", "imu_calib", "IMU_STEREO", "imu"])
+def test_inertial_parts_run(what):
+    """The calls that raised before the IMU stack was ported now run: the
+    inertial sensors build a visual-inertial tracker and mapper (and need
+    an ImuCalib), imu_calib on a visual sensor is ignored as in tpuslam,
+    and imu= samples reach the tracker's buffer."""
+    cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
+    img = np.zeros((240, 376), np.float32)
+    imu = np.column_stack([np.arange(1, 4) * 0.005, np.zeros((3, 3)),
+                           np.tile([0.0, 0.0, 9.81], (3, 1))])
+    if what in Sensor.__members__:
+        with pytest.raises(ValueError, match="imu_calib"):
+            System(cam, sensor=Sensor[what], device="cpu")
+        slam = System(cam, sensor=Sensor[what], imu_calib=ImuCalib(), bf=20.0, device="cpu")
+        assert slam.tracker.use_imu and slam.local_mapper.imu_calib is not None
+        if what == "IMU_MONOCULAR":
+            slam.track_monocular(img, 0.0, imu=imu)
+        else:
+            slam.track_stereo(img, img, 0.0, imu=imu)
+        # a blank image initializes nothing
+        assert slam.get_tracking_state() in (State.NO_IMAGES_YET, State.NOT_INITIALIZED)
+        assert len(slam.map.valid_kf_ids()) == 0
+        return
+    if what == "imu_calib":
+        slam = System(cam, imu_calib=ImuCalib(), bf=20.0, device="cpu")
+        assert not slam.tracker.use_imu and slam.local_mapper.imu_calib is None
+        return
+    slam = System(cam, sensor=Sensor.IMU_MONOCULAR, imu_calib=ImuCalib(), device="cpu")
+    slam.track_monocular(img, 0.02, imu=imu)
+    assert np.array_equal(np.asarray(slam.tracker.imu_since_kf), imu)

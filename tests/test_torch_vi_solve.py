@@ -1,0 +1,364 @@
+"""The port's visual-inertial solvers against tpuslam's, on the CPU.
+
+  * pose_inertial_solve on tests/test_pose_inertial.py's problems: the
+    last-keyframe anchor (mono rows, stereo rows, a camera offset from the
+    body, gross outliers) and the last-frame anchor held by the
+    marginalization prior of a first solve. f64: R, p, v and the biases
+    within 1e-9, H15 within 1e-7 relative to its largest entry, inliers
+    equal; one f32 case within 2e-4 / 2e-3 of tpuslam's f32 run.
+  * vi_ba_solve on tests/test_inertial_ba.py's problem (at the truth, from
+    a perturbed start, with a fixed pose): f64 states within 1e-8 relative
+    and the cost within 1e-6 relative; one f32 case passing tpuslam's own
+    recovery gates, within 3 cm of tpuslam's f32 run.
+  * vi_matvec and pcg_solve_vi on a random 15-dim reduced system: within
+    1e-12 / 1e-10 relative of tpuslam's, and the PCG solution within 1e-5
+    of the dense solve (its stopping tolerance).
+  * The 4-DoF essential graph on tests/test_pose_graph.py's loop (dense and
+    PCG): R and t within 1e-9, pitch and roll untouched, the loop closed.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuslam.core import lie as JL
+from tpuslam.imu import preintegration as JP
+from tpuslam.solve import inertial_ba as JBA
+from tpuslam.solve import pose_graph as JG
+from tpuslam.solve import pose_inertial as JPI
+from tpuslam.solve import schur_cg as JS
+from tpuslam_torch.imu.preintegration import pre_to
+from tpuslam_torch.solve import inertial_ba as TBA
+from tpuslam_torch.solve import pose_graph as TG
+from tpuslam_torch.solve import pose_inertial as TPI
+from tpuslam_torch.solve import schur_cg as TS
+
+from test_inertial_ba import _make_problem
+from test_pose_graph import _circle_graph
+from test_pose_inertial import CX, CY, FX, FY, _make, _obs, _perturbed
+
+torch.set_num_threads(2)
+BF = 30.0
+
+
+def T(a, dtype=torch.float64):
+    return torch.as_tensor(np.array(a, np.float64)).to(dtype)
+
+
+def J(a, dtype=jnp.float64):
+    return jnp.asarray(np.asarray(a, np.float64), dtype)
+
+
+def close(a, b, rel, what=""):
+    a = np.asarray(a.detach() if torch.is_tensor(a) else a, np.float64)
+    b = np.asarray(b, np.float64)
+    scale = max(float(np.abs(b).max()), 1e-30)
+    assert np.abs(a - b).max() <= rel * scale, (what, np.abs(a - b).max(), scale)
+
+
+# ---------------------------------------------------------------- pose-inertial
+def _pi_inputs(rng, d, k_anchor, k_frame, state2, prior=None, stereo_frac=0.0,
+               n_outliers=0):
+    """tests/test_pose_inertial.py's solve inputs as numpy, with optional
+    stereo rows (u_right from BF) and gross outliers."""
+    calib = d["calib"]
+    uvr, valid = _obs(d, k_frame)
+    P = len(uvr)
+    stereo = np.zeros(P, bool)
+    if stereo_frac:
+        Rcw, tcw = calib.cam_from_body(d["Rwb"][k_frame], d["p"][k_frame])
+        z = (d["X"] @ Rcw.T + tcw)[:, 2]
+        stereo = (rng.rand(P) < stereo_frac) & valid
+        uvr[stereo, 2] = uvr[stereo, 0] - BF / z[stereo]
+    if n_outliers:
+        bad = rng.choice(np.nonzero(valid)[0], n_outliers, replace=False)
+        uvr[bad, :2] += rng.uniform(30, 80, (n_outliers, 2)) * np.sign(rng.randn(n_outliers, 2))
+    pre = {k: np.asarray(v, np.float64) for k, v in d["pres"][k_frame - 1].items()}
+    info9 = np.asarray(JP.information_from_cov(J(pre["C"][:9, :9])))
+    dT = float(pre["dT"])
+    pr = prior or dict(H=np.zeros((15, 15)), R=d["Rwb"][k_anchor], p=d["p"][k_anchor],
+                       v=d["v"][k_anchor], bg=np.zeros(3), ba=np.zeros(3))
+    anchor = (d["Rwb"][k_anchor], d["p"][k_anchor], d["v"][k_anchor], np.zeros(3), np.zeros(3))
+    floats = (*anchor, *state2, d["X"], uvr, np.ones(P))
+    edge = (info9, np.zeros(3), np.zeros(3))
+    prior_args = (pr["H"], pr["R"], pr["p"], pr["v"], pr["bg"], pr["ba"])
+    return floats, stereo, valid, pre, edge, (1.0 / (1e-9 * dT), 1.0 / (1e-8 * dT)), prior_args, \
+        (calib.Rcb, calib.tcb)
+
+
+def _pi_both(inputs, anchor_fixed, dtype=torch.float64):
+    floats, stereo, valid, pre, edge, rw, prior_args, ext = inputs
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    jo = JPI.pose_inertial_solve(
+        *[J(x, jd) for x in floats], jnp.asarray(stereo), jnp.asarray(valid),
+        {k: J(v, jd) for k, v in pre.items()}, *[J(x, jd) for x in edge], *rw,
+        *[J(x, jd) for x in prior_args], anchor_fixed, *[J(x, jd) for x in ext],
+        FX, FY, CX, CY, BF)
+    to = TPI.pose_inertial_solve(
+        *[T(x, dtype) for x in floats], torch.as_tensor(stereo), torch.as_tensor(valid),
+        pre_to(pre, "cpu", dtype), *[T(x, dtype) for x in edge], *rw,
+        *[T(x, dtype) for x in prior_args], anchor_fixed, *[T(x, dtype) for x in ext],
+        FX, FY, CX, CY, BF)
+    return [np.asarray(x) for x in jo], [x.numpy() for x in to]
+
+
+def _assert_pi_equal(jo, to, tol_state=1e-9, tol_h=1e-7):
+    for name, a, b in zip(("R", "p", "v", "bg", "ba"), to[:5], jo[:5]):
+        np.testing.assert_allclose(a, b, atol=tol_state, rtol=0, err_msg=name)
+    assert np.array_equal(to[5], jo[5])
+    close(to[6], jo[6], tol_h, "H15")
+    assert int(to[7]) == int(jo[7])
+
+
+@pytest.mark.parametrize("case", ["mono", "stereo", "tbc", "outliers"])
+def test_pose_inertial_kf_anchor_matches_tpuslam(rng, case):
+    calib = None
+    if case == "tbc":
+        from tpuslam.imu.preintegration import ImuCalib
+
+        Tbc = np.eye(4)
+        Tbc[:3, :3] = np.asarray(JL.so3_exp(jnp.asarray([0.1, -0.2, 0.3])))
+        Tbc[:3, 3] = [0.1, -0.05, 0.02]
+        calib = ImuCalib(Tbc=Tbc)
+    d = _make(rng, calib=calib)
+    R2, p2, v2 = _perturbed(rng, d, 1)
+    inputs = _pi_inputs(rng, d, 0, 1, (R2, p2, v2, np.zeros(3), np.zeros(3)),
+                        stereo_frac=0.5 if case == "stereo" else 0.0,
+                        n_outliers=15 if case == "outliers" else 0)
+    jo, to = _pi_both(inputs, True)
+    _assert_pi_equal(jo, to)
+    np.testing.assert_allclose(to[1], d["p"][1], atol=5e-3)
+    if case == "outliers":
+        assert to[5].sum() < inputs[2].sum() - 10
+
+
+def test_pose_inertial_prior_anchor_matches_tpuslam(rng):
+    """Frame 1 against KF 0, then frame 2 against the free frame-1 anchor
+    held by the marginalization prior (tpuslam's LastFrame variant)."""
+    d = _make(rng)
+    jo1, to1 = _pi_both(_pi_inputs(rng, d, 0, 1, (*_perturbed(rng, d, 1), np.zeros(3),
+                                                  np.zeros(3))), True)
+    _assert_pi_equal(jo1, to1)
+    R1s, p1s, v1s, bg1, ba1, _, H15, _ = jo1
+    prior = dict(H=H15, R=R1s, p=p1s, v=v1s, bg=bg1, ba=ba1)
+    d2 = dict(d, Rwb=d["Rwb"].copy(), p=d["p"].copy(), v=d["v"].copy())
+    d2["Rwb"][1], d2["p"][1], d2["v"][1] = R1s, p1s, v1s
+    R2, p2, v2 = _perturbed(rng, d, 2)
+    inputs = _pi_inputs(rng, d2, 1, 2, (R2, p2, v2, bg1, ba1), prior=prior)
+    floats = list(inputs[0])
+    floats[3], floats[4] = bg1, ba1          # the anchor carries frame 1's biases
+    jo, to = _pi_both((tuple(floats),) + inputs[1:], False)
+    _assert_pi_equal(jo, to, tol_state=1e-8)
+    np.testing.assert_allclose(to[1], d["p"][2], atol=5e-3)
+
+
+def test_pose_inertial_f32_matches_tpuslam_f32(rng):
+    d = _make(rng)
+    R2, p2, v2 = _perturbed(rng, d, 1)
+    jo, to = _pi_both(_pi_inputs(rng, d, 0, 1, (R2, p2, v2, np.zeros(3), np.zeros(3)),
+                                 stereo_frac=0.5), True, dtype=torch.float32)
+    assert to[0].dtype == np.float32
+    np.testing.assert_allclose(to[0], jo[0], atol=2e-4)
+    np.testing.assert_allclose(to[1], jo[1], atol=2e-3)
+    np.testing.assert_allclose(to[2], jo[2], atol=2e-2)
+    assert (to[5] == jo[5]).mean() > 0.97
+    np.testing.assert_allclose(to[1], d["p"][1], atol=5e-3)
+
+
+# ------------------------------------------------------------------- VI BA
+def _ba_start(rng, d, kind):
+    K, P = d["K"], d["P"]
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    zero = np.zeros((K, 3))
+    if kind == "truth":
+        return (d["Rwb"], d["p"], d["v"], zero, zero, d["X"]), fixed, 2
+    if kind == "fixed":
+        pn = d["p"] + np.concatenate([np.zeros((1, 3)), rng.randn(K - 1, 3) * 0.03])
+        return (d["Rwb"], pn, d["v"], zero, zero, d["X"]), fixed, 8
+    Rn, pn = d["Rwb"].copy(), d["p"].copy()
+    vn = d["v"] + rng.randn(K, 3) * 0.05
+    for k in range(1, K):
+        Rn[k] = Rn[k] @ np.asarray(JL.so3_exp(jnp.asarray(rng.randn(3) * 0.02)))
+        pn[k] = pn[k] + rng.randn(3) * 0.05
+    Xn = d["X"] + rng.randn(P, 3) * 0.05
+    bgn = np.tile(rng.randn(3) * 0.01, (K, 1))
+    ban = np.tile(rng.randn(3) * 0.05, (K, 1))
+    return (Rn, pn, vn, bgn, ban, Xn), fixed, 60
+
+
+def _ba_both(d, start, fixed, n_iters, dtype=torch.float64):
+    K = d["K"]
+    jd = jnp.float64 if dtype == torch.float64 else jnp.float32
+    pre = {k: np.asarray(v, np.float64) for k, v in d["pre_stack"].items()}
+    info9 = np.asarray(d["info9"], np.float64)
+    ints = (d["obs_kf"], d["obs_pt"])
+    obs = (d["uvr"], d["inv_sigma2"])
+    masks = (d["stereo"], d["valid"])
+    edges = (d["edges_a"], d["edges_b"])
+    pairs = (d["pair_a"], d["pair_b"])
+    jo = JBA.vi_ba_solve(
+        *[J(x, jd) for x in start], *map(jnp.asarray, ints), *[J(x, jd) for x in obs],
+        *map(jnp.asarray, masks), *map(jnp.asarray, edges), {k: J(v, jd) for k, v in pre.items()},
+        J(info9, jd), J(np.zeros((K, 3)), jd), J(np.zeros((K, 3)), jd), jnp.asarray(fixed),
+        *map(jnp.asarray, pairs), d["fx"], d["fy"], d["cx"], d["cy"], 0.0,
+        J(d["rw_info_g"], jd), J(d["rw_info_a"], jd), n_iters=n_iters)
+    to = TBA.vi_ba_solve(
+        *[T(x, dtype) for x in start], *map(torch.as_tensor, ints), *[T(x, dtype) for x in obs],
+        *map(torch.as_tensor, masks), *map(torch.as_tensor, edges), pre_to(pre, "cpu", dtype),
+        T(info9, dtype), T(np.zeros((K, 3)), dtype), T(np.zeros((K, 3)), dtype),
+        torch.as_tensor(fixed), *map(torch.as_tensor, pairs), d["fx"], d["fy"], d["cx"], d["cy"],
+        0.0, T(d["rw_info_g"], dtype), T(d["rw_info_a"], dtype), n_iters=n_iters)
+    return [np.asarray(x) for x in jo], [x.numpy() for x in to]
+
+
+@pytest.mark.parametrize("kind", ["truth", "perturbed", "fixed"])
+def test_vi_ba_solve_matches_tpuslam(rng, kind):
+    d = _make_problem(rng)
+    start, fixed, n_iters = _ba_start(rng, d, kind)
+    jo, to = _ba_both(d, start, fixed, n_iters)
+    for name, a, b in zip(("Rwb", "p", "v", "bg", "ba", "X"), to[:6], jo[:6]):
+        close(a, b, 1e-8, name)
+    assert abs(float(to[6]) - float(jo[6])) <= 1e-6 * max(float(jo[6]), 1e-3)
+    np.testing.assert_allclose(to[1][0], start[1][0], atol=1e-12)   # the fixed pose
+    if kind != "fixed":
+        np.testing.assert_allclose(to[1], d["p"], atol=3e-2)
+
+
+def test_vi_ba_solve_f32_recovers(rng):
+    """f32 (the card's dtype): tpuslam's recovery gates, and within their
+    3 cm of tpuslam's f32 solution (the near-noiseless problem's flat
+    direction converges only asymptotically, so f32 paths part there)."""
+    d = _make_problem(rng)
+    start, fixed, n_iters = _ba_start(rng, d, "f32")
+    jo, to = _ba_both(d, start, fixed, n_iters, dtype=torch.float32)
+    assert to[1].dtype == np.float32
+    np.testing.assert_allclose(to[1], d["p"], atol=3e-2)
+    np.testing.assert_allclose(to[2], d["v"], atol=5e-2)
+    assert np.abs(to[3]).max() < 5e-3 and np.abs(to[4]).max() < 5e-2
+    np.testing.assert_allclose(to[1], jo[1], atol=3e-2)
+
+
+# --------------------------------------------------------------- VI PCG
+def _reduced_system(rng, K=6, P=40, obs_per_pt=3):
+    E = K - 1
+    A = rng.randn(K, 15, 15) * 0.3
+    Hdiag = A @ A.transpose(0, 2, 1) + 20.0 * np.eye(15)
+    Hoff = rng.randn(E, 15, 15) * 0.5
+    obs_kf = np.concatenate([rng.choice(K, obs_per_pt, replace=False) for _ in range(P)])
+    obs_pt = np.repeat(np.arange(P), obs_per_pt)
+    Wo = rng.randn(len(obs_kf), 6, 3) * 0.4
+    B = rng.randn(P, 3, 3)
+    Hll_inv = np.linalg.inv(B @ B.transpose(0, 2, 1) + 5.0 * np.eye(3))
+    free = np.ones((K, 15), bool)
+    free[0, :6] = False
+    return dict(Hdiag=Hdiag, Hoff=Hoff, ea=np.arange(E), eb=np.arange(1, E + 1), Hll_inv=Hll_inv,
+                Wo=Wo, obs_kf=obs_kf, obs_pt=obs_pt, free=free, b=rng.randn(K, 15))
+
+
+def _dense(s):
+    K = len(s["Hdiag"])
+    S = np.zeros((K, 15, K, 15))
+    for k in range(K):
+        S[k, :, k] = s["Hdiag"][k]
+    for e, (a, b) in enumerate(zip(s["ea"], s["eb"])):
+        S[a, :, b] += s["Hoff"][e]
+        S[b, :, a] += s["Hoff"][e].T
+    for o1, (k1, j1) in enumerate(zip(s["obs_kf"], s["obs_pt"])):
+        for o2, (k2, j2) in enumerate(zip(s["obs_kf"], s["obs_pt"])):
+            if j1 == j2:
+                S[k1, :6, k2, :6] -= s["Wo"][o1] @ s["Hll_inv"][j1] @ s["Wo"][o2].T
+    return S.reshape(K * 15, K * 15)
+
+
+def test_vi_matvec_and_pcg_match_tpuslam(rng):
+    s = _reduced_system(rng)
+    mats = ("Hdiag", "Hoff")
+    idx = ("ea", "eb")
+    x = rng.randn(*s["b"].shape)
+    args_j = ([J(s[k]) for k in mats], [jnp.asarray(s[k]) for k in idx], J(s["Hll_inv"]),
+              J(s["Wo"]), jnp.asarray(s["obs_kf"]), jnp.asarray(s["obs_pt"]))
+    args_t = ([T(s[k]) for k in mats], [torch.as_tensor(s[k]) for k in idx], T(s["Hll_inv"]),
+              T(s["Wo"]), torch.as_tensor(s["obs_kf"]), torch.as_tensor(s["obs_pt"]))
+
+    def flat(args):
+        return [*args[0], *args[1], *args[2:]]
+
+    yj = JS.vi_matvec(J(x), *flat(args_j))
+    yt = TS.vi_matvec(T(x), *flat(args_t))
+    close(yt, yj, 1e-12, "matvec")
+    close(yt.numpy().reshape(-1), _dense(s) @ x.reshape(-1), 1e-12, "dense matvec")
+    xj = JS.pcg_solve_vi(J(s["b"]), *flat(args_j), jnp.asarray(s["free"]), n_iters=150)
+    xt = TS.pcg_solve_vi(T(s["b"]), *flat(args_t), torch.as_tensor(s["free"]), n_iters=150)
+    close(xt, xj, 1e-10, "pcg")
+    f = s["free"].reshape(-1)
+    S = _dense(s)[np.ix_(f, f)]
+    # the PCG stops at |r|^2 <= 1e-12 |b|^2
+    close(xt.numpy().reshape(-1)[f], np.linalg.solve(S, s["b"].reshape(-1)[f]), 1e-5, "solve")
+    assert np.all(xt.numpy()[~s["free"]] == 0)
+
+
+# ---------------------------------------------------------- 4-DoF essential graph
+def _graph4(rng, K=12):
+    """tests/test_pose_graph.py's 4-DoF loop: yaw + translation odometry
+    noise, one exact loop edge."""
+    gt, _, meas = _circle_graph(rng, K, drift=0.0, s_drift=0.0)
+    est, meas2 = [gt[0]], []
+    for k in range(K - 1):
+        _, R_rel, t_rel = meas[k][2]
+        yaw = rng.randn() * 0.02
+        c, s = np.cos(yaw), np.sin(yaw)
+        Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        Rn = Rz @ np.asarray(R_rel)
+        tn = Rz @ np.asarray(t_rel) + rng.randn(3) * np.array([0.02, 0.02, 0.0])
+        meas2.append((k, k + 1, Rn, tn))
+        _, Rk, tk = est[k]
+        est.append((1.0, Rn @ Rk, Rn @ tk + tn))
+    _, R_loop, t_loop = meas[-1][2]
+    meas2.append((0, K - 1, np.asarray(R_loop), np.asarray(t_loop)))
+    fixed = np.zeros(K, bool)
+    fixed[0] = True
+    return gt, dict(R=np.stack([e[1] for e in est]), t=np.stack([e[2] for e in est]),
+                    ei=np.array([m[0] for m in meas2]), ej=np.array([m[1] for m in meas2]),
+                    Rm=np.stack([m[2] for m in meas2]), tm=np.stack([m[3] for m in meas2]),
+                    w=np.ones(len(meas2)), fixed=fixed)
+
+
+@pytest.mark.parametrize("use_cg", [False, True])
+def test_pose_graph_4dof_matches_tpuslam(rng, use_cg):
+    gt, g = _graph4(rng)
+    K = len(g["R"])
+    kw = dict(n_iters=25, use_cg=use_cg)
+    Rj, tj, cj = JG.pose_graph_solve_4dof(
+        J(g["R"]), J(g["t"]), jnp.asarray(g["ei"], jnp.int32), jnp.asarray(g["ej"], jnp.int32),
+        J(g["Rm"]), J(g["tm"]), J(g["w"]), jnp.asarray(g["fixed"]), **kw)
+    Rt, tt, ct = TG.pose_graph_solve_4dof(
+        T(g["R"]), T(g["t"]), torch.as_tensor(g["ei"]), torch.as_tensor(g["ej"]), T(g["Rm"]),
+        T(g["tm"]), T(g["w"]), torch.as_tensor(g["fixed"]), **kw)
+    np.testing.assert_allclose(Rt.numpy(), np.asarray(Rj), atol=1e-9)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(tj), atol=1e-9)
+    assert abs(float(ct) - float(cj)) <= 1e-9 * max(1.0, abs(float(cj)))
+    # gravity (the third column of Rcw) untouched; the loop closed
+    np.testing.assert_allclose(Rt.numpy()[:, :, 2], g["R"][:, :, 2], atol=1e-9)
+
+    def center_err(R, t):
+        _, Rg, tg = gt[K - 1]
+        return np.linalg.norm(-(R[K - 1].T @ t[K - 1]) + Rg.T @ tg)
+
+    assert center_err(Rt.numpy(), tt.numpy()) < 0.2 * center_err(g["R"], g["t"])
+
+
+def test_pose_graph_4dof_f32_runs_on_edges_of_one(rng):
+    """f32 solve (the card's dtype): the jacfwd of the 4-dim increments
+    keeps every intermediate batched, so no f64 tangent appears."""
+    gt, g = _graph4(rng)
+    Rt, tt, _ = TG.pose_graph_solve_4dof(
+        T(g["R"], torch.float32), T(g["t"], torch.float32), torch.as_tensor(g["ei"]),
+        torch.as_tensor(g["ej"]), T(g["Rm"], torch.float32), T(g["tm"], torch.float32),
+        T(g["w"], torch.float32), torch.as_tensor(g["fixed"]), n_iters=25)
+    Rd, td, _ = TG.pose_graph_solve_4dof(
+        T(g["R"]), T(g["t"]), torch.as_tensor(g["ei"]), torch.as_tensor(g["ej"]), T(g["Rm"]),
+        T(g["tm"]), T(g["w"]), torch.as_tensor(g["fixed"]), n_iters=25)
+    assert Rt.dtype == torch.float32
+    np.testing.assert_allclose(tt.numpy(), td.numpy(), atol=2e-3)

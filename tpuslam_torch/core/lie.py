@@ -60,6 +60,19 @@ def so3_exp(w):
     return _eye_like(W) + a[..., None, None] * W + b[..., None, None] * W2
 
 
+def so3_right_jacobian(w):
+    """Right Jacobian of SO(3) (ref: RightJacobianSO3, ImuTypes.h:274)."""
+    theta2 = (w * w).sum(dim=-1)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _EPS
+    safe_t2 = _where(small, 1.0, theta2)
+    theta = torch.sqrt(safe_t2)
+    b = _where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta)) / safe_t2)
+    c = _where(small, 1.0 / 6.0 - theta2 / 120.0, (theta - torch.sin(theta)) / (safe_t2 * theta))
+    return _eye_like(W) - b[..., None, None] * W + c[..., None, None] * W2
+
+
 def se3_exp(xi):
     """exp: se(3) [...,6] (rho, phi) -> (R, t), t = V(phi) @ rho."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -128,9 +141,30 @@ def so3_log(R):
     return _where(near_pi[..., None], theta[..., None] * axis_pi, w_generic)
 
 
+def se3_log(R, t):
+    """log: SE(3) -> [...,6] (rho, phi), rho = V(phi)^-1 t."""
+    phi = so3_log(R)
+    theta2 = (phi * phi).sum(dim=-1)
+    W = hat(phi)
+    W2 = W @ W
+    small = theta2 < _EPS
+    safe = _where(small, 1.0, theta2)
+    half = torch.sqrt(safe) * 0.5
+    # V^-1 = I - W/2 + c W^2, c = (1 - (t/2) cos(t/2) / sin(t/2)) / t^2
+    c = _where(small, 1.0 / 12.0 + theta2 / 720.0,
+               (1.0 - half * torch.cos(half) / (torch.sin(half) + 1e-30)) / safe)
+    Vinv = _eye_like(W) - 0.5 * W + c[..., None, None] * W2
+    return torch.cat([_mv(Vinv, t), phi], dim=-1)
+
+
 def se3_inverse(R, t):
     Rt = R.transpose(-1, -2)
     return Rt, -(Rt @ t[..., None])[..., 0]
+
+
+def se3_compose(Ra, ta, Rb, tb):
+    """(Ra, ta) * (Rb, tb): apply b, then a."""
+    return Ra @ Rb, _mv(Ra, tb) + ta
 
 
 # ---------------------------------------------------------------------------

@@ -18,7 +18,13 @@ reparents a culled keyframe's children to its saved spanning-tree parent
 own parent), and `_create_new_points` caps the triangulation neighbours
 at MAX_TARGETS (tpuslam passes n_triangulate_neighbors uncapped into a
 kernel padded to 32). A loop closer, when wired, is told of every culled
-keyframe. The IMU stages wait for ROADMAP item "the IMU stack".
+keyframe.
+
+With an ImuCalib the mapper runs tpuslam's inertial stages: the IMU-init
+state machine (init, VIBA1 at 5 s, VIBA2 at 15 s, periodic scale
+refinement; engine/inertial.py), the inertial local BA once the IMU is
+initialized, the temporal-chain protection in keyframe culling, and the
+chain splice when a keyframe is erased.
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from ..map.store import SlamMap
 from ..solve import ba as B
 from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import GLOBAL_TIMER as T
+from ..utils.verbose import Level, print_mess
 from .config import SlamConfig
+from .inertial import full_inertial_ba, local_inertial_ba, run_imu_init
 from .map_device import FUSE_CHUNK, MAX_TARGETS, MapDeviceKernels
 
 
@@ -42,10 +50,13 @@ def _no_lock():
 
 class LocalMapper:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, bf: float = 0.0,
-                 device=DEFAULT_DEVICE, dtype=torch.float32):
+                 imu_calib=None, mono: bool | None = None, device=DEFAULT_DEVICE,
+                 dtype=torch.float32):
         """bf > 0 for stereo / RGB-D, 0 for a monocular map (its scale is
-        anchored by nothing). device: where the mapping kernels and local
-        BA run; dtype: the BA's float type (f32 on the card)."""
+        anchored by nothing). imu_calib: an ImuCalib enables the inertial
+        stages; mono (default: bf == 0) selects the scale-solving IMU init
+        and the scale refinement. device: where the mapping kernels and the
+        BAs run; dtype: the BAs' float type (f32 on the card)."""
         self.camera = camera
         self.camspec = camera.spec
         self.cfg = cfg
@@ -58,6 +69,11 @@ class LocalMapper:
         self.recent_points: list[tuple[int, int]] = []  # (mp, created_at_kf)
         self.sf = slam_map.scale_factors
         self.inv_sigma2 = 1.0 / self.sf ** 2
+        self.imu_calib = imu_calib
+        self.mono = bf <= 0 if mono is None else mono
+        self.imu_init_time: float | None = None
+        self.viba_stage = 0  # 0: before init, 1: init done, 2: VIBA1, 3: VIBA2
+        self._last_refine = -1e9
         # BA interruption hook (ref: mbAbortBA LocalMapping.cc:103,283); the
         # async mapper points it at its queue's non-empty check
         self.abort_check = None
@@ -97,14 +113,85 @@ class LocalMapper:
                 # LocalMapping::Run :103,283); on a scale-free mono map the
                 # robust first phase always runs and only the second phase
                 # yields to the queue (window_ba's abort_check), since a
-                # full skip starves BA and lets the mono scale drift. The
-                # IMU arm of "anchored" waits for the IMU stack.
+                # full skip starves BA and lets the mono scale drift. An
+                # initialized IMU anchors the scale too.
                 backlog = self.abort_check is not None and self.abort_check()
-                scale_anchored = self.bf > 0
-                if not (backlog and scale_anchored):
+                scale_anchored = self.bf > 0 or m.imu_initialized
+                if backlog and scale_anchored:
+                    pass
+                elif m.imu_initialized:
+                    with T.stage("local_inertial_ba"):
+                        self._local_inertial_ba(kf, hold=hold)
+                else:
                     self._local_ba(kf, hold=hold)
             with T.stage("kf_culling"), hold():
                 self._cull_keyframes(kf)
+        if self.imu_calib is not None:
+            with T.stage("imu_stage"), hold():
+                self._imu_stage(kf)
+
+    # ---------------------------------------------------------------- inertial
+    def _record(self, event: str, t_now: float):
+        print_mess(f"[local_mapping] {event} t={t_now:.3f} kfs={len(self.map.temporal_chain())}",
+                   Level.NORMAL)
+
+    def _full_inertial_ba(self, prior_g, prior_a):
+        full_inertial_ba(self.map, self.camera, self.imu_calib, self.inv_sigma2, prior_g=prior_g,
+                         prior_a=prior_a, device=self.device, dtype=self.dtype)
+
+    def _imu_stage(self, kf: int):
+        """IMU-init state machine (ref LocalMapping.cc:162-221: InitializeIMU,
+        then VIBA1 at 5 s, VIBA2 at 15 s, scale refinement meanwhile)."""
+        m = self.map
+        icfg = self.cfg.inertial
+        chain = m.temporal_chain()
+        if not chain:
+            return
+        t_now = float(m.kf_time[kf])
+        span = t_now - float(m.kf_time[chain[0]])
+        if not m.imu_initialized:
+            if len(chain) < icfg.init_min_kfs or span < icfg.init_min_span:
+                return
+            if run_imu_init(m, self.imu_calib, mono=self.mono, prior_g=icfg.prior_g1,
+                            prior_a=icfg.prior_a1, vis_rot_sigma=icfg.init_vis_rot_sigma,
+                            vis_pos_sigma=icfg.init_vis_pos_sigma,
+                            max_logs_sigma=icfg.init_max_logs_sigma, device=self.device):
+                self._full_inertial_ba(icfg.prior_g1, icfg.prior_a1)
+                self.imu_init_time = t_now
+                self.viba_stage = 1
+                self._record("imu_init", t_now)
+            return
+        elapsed = t_now - self.imu_init_time
+        if self.viba_stage == 1 and elapsed > icfg.viba1_time:
+            self._full_inertial_ba(icfg.prior_g2, icfg.prior_a2)
+            m.inertial_ba1 = True
+            self.viba_stage = 2
+            self._record("viba1", t_now)
+        elif self.viba_stage == 2 and elapsed > icfg.viba2_time:
+            self._full_inertial_ba(0.0, 0.0)
+            m.inertial_ba2 = True
+            self.viba_stage = 3
+            self._record("viba2", t_now)
+        elif (self.viba_stage < 3 and elapsed < icfg.scale_refine_until
+              and t_now - self._last_refine > icfg.scale_refine_period):
+            # periodic JOINT full VI BA + (mono) inertial-only scale / gravity
+            # refinement while the estimate is young (ref LocalMapping.cc
+            # :208-219): correlated visual rotation drift reads as a scale
+            # change to the poses-fixed refinement, so full BA runs first
+            self._last_refine = t_now
+            self._full_inertial_ba(icfg.prior_g2, icfg.prior_a2)
+            if self.mono:
+                run_imu_init(m, self.imu_calib, mono=True, opt_bias=False, device=self.device)
+
+    def _local_inertial_ba(self, kf: int, hold=_no_lock):
+        """Until VIBA2 declares the biases converged, keep the zero-mean
+        bias priors on: with gentle motion a free accelerometer bias absorbs
+        the scale / gravity signal (ref priorA=1e5 until the 15 s FIBA)."""
+        icfg = self.cfg.inertial
+        pg, pa = (0.0, 0.0) if self.map.inertial_ba2 else (icfg.prior_g2, icfg.prior_a2)
+        local_inertial_ba(self.map, kf, self.camera, self.imu_calib, self.inv_sigma2,
+                          window=icfg.local_window, prior_g=pg, prior_a=pa, hold=hold,
+                          device=self.device, dtype=self.dtype)
 
     # ------------------------------------------------------------- culling
     def _cull_recent_points(self, kf: int):
@@ -129,11 +216,22 @@ class LocalMapper:
     def _cull_keyframes(self, kf: int):
         """ref: KeyFrameCulling (LocalMapping.cc:935) — a local KF is
         redundant if >=90% of its points are seen by >=3 other KFs at the
-        same or finer scale."""
+        same or finer scale. Inertial maps protect the temporal chain: the
+        last 21 KFs are never culled, nothing is culled before IMU init,
+        and a cull may not open a time gap over 0.5 s (ref :949-961, :1019)."""
         m = self.map
+        inertial = self.imu_calib is not None
+        protected = set(m.temporal_chain()[-21:]) if inertial else set()
         for cand in m.best_covisible(kf):
             if cand == 0 or not m.kf_valid[cand]:
                 continue
+            if inertial:
+                if cand in protected or not m.imu_initialized:
+                    continue
+                prev = int(m.kf_prev[cand])
+                nxts = np.nonzero(m.kf_prev[: m.n_kf] == cand)[0]
+                if prev < 0 or len(nxts) != 1 or m.kf_time[nxts[0]] - m.kf_time[prev] > 0.5:
+                    continue
             slots = np.nonzero(m.kf_mp[cand] >= 0)[0]
             if len(slots) == 0:
                 continue
@@ -160,6 +258,14 @@ class LocalMapper:
             m.covis[o].pop(cand, None)
         m.covis[cand] = {}
         m.kf_valid[cand] = False
+        # splice the temporal (inertial) chain: the next KF inherits prev;
+        # its preintegration is rebuilt from the joined raw windows on use
+        for c in np.nonzero(m.kf_prev[: m.n_kf] == cand)[0]:
+            m.kf_prev[c] = m.kf_prev[cand]
+            m.kf_preint[c] = None
+            if m.kf_imu[c] is not None and m.kf_imu[cand] is not None:
+                m.kf_imu[c] = tuple(np.concatenate([x1, x2])
+                                    for x1, x2 in zip(m.kf_imu[cand], m.kf_imu[c]))
         # reparent the live children (spanning tree) to the saved parent
         # BEFORE cand's own pointer moves to the anchor. Culled KFs that
         # point at cand keep pointing at it: their stored relative pose is

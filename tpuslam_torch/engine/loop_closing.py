@@ -18,9 +18,12 @@ per try.
 One fault of tpuslam's GBA apply is repaired: a point created during the
 solve whose first keyframe was culled in the meantime rides the
 correction of another surviving observer (tpuslam leaves it at its stale
-position). The inertial parts (the VI GBA snapshot and solve, the
-inertial merge gates and weld BA) wait for ROADMAP item "the IMU stack",
-the distributed GBA route for "distribution"; both raise.
+position). On an IMU-initialized map the closer runs tpuslam's inertial
+parts: the merge gates (scale within [0.9, 1.1] after VIBA1, the rotation
+projected onto yaw), the 4-DoF essential graph, the visual-inertial weld
+BA of a merge, and the FullInertialBA as the background GBA, which stages
+velocities and biases with the poses. The distributed GBA routes raise
+(ROADMAP item "distribution").
 """
 
 from __future__ import annotations
@@ -39,11 +42,9 @@ from ..solve.sim3 import optimize_sim3, sim3_ransac
 from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import GLOBAL_TIMER as T
 from .config import SlamConfig
+from .inertial import (_window_viba_assemble, multi_rank, solve_window_snapshot,
+                       window_inertial_ba)
 from .local_mapping import window_ba
-
-
-def _imu_waits(what):
-    return NotImplementedError(f"{what} is ROADMAP item 'the IMU stack'")
 
 
 class LoopCloser:
@@ -237,8 +238,6 @@ class LoopCloser:
         ia, ib, mp_c, mp_l = ia[ok], ib[ok], mp_c[ok], mp_l[ok]
         if len(ia) < lcfg.min_bow_matches:
             return None
-        if merge and m.imu_initialized:
-            raise _imu_waits("the inertial merge gate")
         Xc = m.mp_pos[mp_c] @ m.kf_R[kf].T + m.kf_t[kf]
         Xl = m.mp_pos[mp_l] @ m.kf_R[cand].T + m.kf_t[cand]
         fc, fl = m.kf_feats[kf], m.kf_feats[cand]
@@ -260,6 +259,19 @@ class LoopCloser:
         s = float(s)
         R = R.cpu().numpy().astype(np.float64)
         t = t.cpu().numpy().astype(np.float64)
+        if merge and m.imu_initialized:
+            # inertial merge gates (ref LoopClosing.cc:95-114): gravity pins
+            # pitch / roll and, once VIBA1 ran, the scale is metric — reject a
+            # Sim3 scale outside [0.9, 1.1] and project the rotation onto
+            # yaw (MergeLocal2's 4-DoF alignment)
+            if m.inertial_ba1 and not (0.9 < s < 1.1):
+                return None
+            yaw = np.arctan2(R[1, 0] - R[0, 1], R[0, 0] + R[1, 1])
+            R_yaw = np.array([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
+                              [0.0, 0.0, 1.0]])
+            if np.arccos(np.clip((np.trace(R_yaw.T @ R) - 1) / 2, -1, 1)) > 0.35:
+                return None  # the Sim3 disagrees badly with gravity: no merge
+            R = R_yaw
         # guided projection: the loop side's local map into the current KF
         n_proj, proj_pairs = self._search_by_projection(kf, cand, s, R, t)
         if n_proj < lcfg.min_proj_matches:
@@ -434,12 +446,23 @@ class LoopCloser:
             # weld-area local BA last: both sides of the seam move, the
             # frontier is fixed (ref MergeLocal -> LocalBundleAdjustment,
             # LoopClosing.cc:1676-1722)
-            if m.imu_initialized:
-                raise _imu_waits("the inertial weld BA")
-            lm = self.local_mapper
-            window_ba(m, self.camera, self.camera.spec, self.inv_sigma2,
-                      lm.bf if lm is not None else 0.0, weld_cur, n_iters=15,
-                      fixed_kfs=old_side, device=self.device, dtype=self.dtype)
+            calib = self._imu_calib()
+            if m.imu_initialized and calib is not None:
+                # inertial maps weld with the visual-inertial window BA so the
+                # seam respects the preintegration chain (MergeInertialBA, ref
+                # Optimizer.cc:6912)
+                opt = m.temporal_chain()[-10:]
+                if len(opt) >= 2:
+                    oset = set(opt)
+                    window_inertial_ba(m, self.camera, calib, self.inv_sigma2, opt_kfs=opt,
+                                       fixed_kfs=[k for k in weld_loop
+                                                  if m.kf_valid[k] and k not in oset],
+                                       n_iters=15, device=self.device, dtype=self.dtype)
+            else:
+                lm = self.local_mapper
+                window_ba(m, self.camera, self.camera.spec, self.inv_sigma2,
+                          lm.bf if lm is not None else 0.0, weld_cur, n_iters=15,
+                          fixed_kfs=old_side, device=self.device, dtype=self.dtype)
         # global BA after the correction, on a background thread (ref
         # :1237-1244 spawns the GBA thread)
         if self.cfg.loop.run_gba:
@@ -453,12 +476,19 @@ class LoopCloser:
         self.n_loops_closed += 1
 
     # ------------------------------------------------------- background GBA
+    def _imu_calib(self):
+        return getattr(self.local_mapper, "imu_calib", None)
+
     def _snapshot_gba(self, fix_kf: int):
         """The GBA problem, assembled from the map under the lock (one
-        numpy pass per keyframe row)."""
+        numpy pass per keyframe row). On an inertial map it is the
+        FullInertialBA problem (ref RunGlobalBundleAdjustment routes to
+        FullInertialBA(7 it) when the IMU is initialized,
+        LoopClosing.cc:2437-2440)."""
         m = self.map
-        if m.imu_initialized:
-            raise _imu_waits("the full inertial GBA")
+        calib = self._imu_calib()
+        if m.imu_initialized and calib is not None:
+            return self._snapshot_gba_vi(fix_kf, calib)
         kfs = np.asarray(m.valid_kf_ids(), np.int64)
         pts = np.unique(m.kf_mp[kfs])
         pts = pts[pts >= 0]
@@ -497,6 +527,54 @@ class LoopCloser:
             stereo=np.concatenate(stereo), fixed=fixed,
             bf=lm.bf if lm is not None else 0.0)
 
+    def _snapshot_gba_vi(self, fix_kf: int, calib):
+        """FullInertialBA snapshot: the temporal chain optimizes poses,
+        velocities and biases, every other valid KF is the fixed visual
+        frontier; the first chain KF's pose is fixed (ref FullInertialBA
+        fixes the init KF, Optimizer.cc:446) and so is fix_kf (the loop /
+        merge anchor)."""
+        m = self.map
+        chain = m.temporal_chain()
+        if len(chain) < 3:
+            return None
+        others = sorted(set(int(k) for k in m.valid_kf_ids()) - set(chain))
+        asm = _window_viba_assemble(m, self.camera, calib, self.inv_sigma2, opt_kfs=chain,
+                                    fixed_kfs=others, fix_first=True, device=self.device)
+        if asm is None:
+            return None
+        fixed = asm["fixed"].copy()
+        if int(fix_kf) in asm["idx"]:
+            fixed[asm["idx"][int(fix_kf)]] = True
+        return dict(kind="vi", abort=threading.Event(), asm=asm, calib=calib,
+                    kfs=np.asarray(chain + others, np.int64), pts=asm["pts"], fixed=fixed)
+
+    def _solve_gba_vi(self, snap, n_iters: int = 7, chunks: int = 3):
+        """Chunked FullInertialBA on the snapshot, without the map lock,
+        abortable between chunks (ref FullInertialBA(7 it) + mbStopGBA).
+        Returns (R, t, X, v, bg, ba) per snapshot KF / point, or None."""
+        asm = dict(snap["asm"])
+        calib = snap["calib"]
+        per = max(1, n_iters // chunks)
+        done = 0
+        while done < n_iters:
+            if snap["abort"].is_set():
+                return None
+            it = min(per, n_iters - done)
+            Rwb, p, v, bg, ba, X, cost = solve_window_snapshot(
+                asm, self.camera, calib, 0.0, 0.0, it, self.device, self.dtype,
+                fixed=snap["fixed"])
+            if not np.isfinite(cost):
+                return None
+            asm.update(Rwb=Rwb, p=p, v=v, bg=bg, ba=ba, X=X)
+            done += it
+        if snap["abort"].is_set():
+            return None
+        K = len(snap["kfs"])
+        Rg, tg = np.zeros((K, 3, 3)), np.zeros((K, 3))
+        for i in range(K):
+            Rg[i], tg[i] = calib.cam_from_body(asm["Rwb"][i], asm["p"][i])
+        return Rg, tg, asm["X"], asm["v"], asm["bg"], asm["ba"]
+
     def _solve_gba(self, snap, n_iters: int = 10, chunks: int = 3):
         """The solve on the snapshot WITHOUT the map lock, in chunks so an
         abort (a new loop or merge, shutdown) is honoured between chunks
@@ -504,9 +582,7 @@ class LoopCloser:
         cam = self.camera
         R, t, X = snap["R"], snap["t"], snap["X"]
         O = len(snap["obs_kf"])
-        if (torch.distributed.is_available() and torch.distributed.is_initialized()
-                and torch.distributed.get_world_size() > 1
-                and O >= self.cfg.loop.dist_gba_min_obs):
+        if multi_rank() and O >= self.cfg.loop.dist_gba_min_obs:
             raise NotImplementedError("the distributed GBA is ROADMAP item 'distribution'")
         per = max(1, n_iters // chunks)
         done = 0
@@ -532,7 +608,8 @@ class LoopCloser:
         anchor KF's correction, the first keyframe or, if that was culled
         meanwhile, another surviving observer."""
         m = self.map
-        Rg, tg, Xg = solved
+        Rg, tg, Xg = solved[:3]
+        vi = len(solved) > 3   # the FullInertialBA result: also v / bg / ba
         kfs, pts = snap["kfs"], snap["pts"]
         with m.lock:
             if snap["abort"].is_set():
@@ -543,6 +620,12 @@ class LoopCloser:
                 if m.kf_valid[k] and not snap["fixed"][i]:
                     m.kf_R[k] = Rg[i]
                     m.kf_t[k] = tg[i]
+                    if vi:
+                        # velocity / bias corrections stage with the poses
+                        # (ref mVwbGBA / bias update, LoopClosing.cc:2476-2530)
+                        m.kf_vel[k] = solved[3][i]
+                        m.kf_bg[k] = solved[4][i]
+                        m.kf_ba[k] = solved[5][i]
             # KFs created during GBA: walk to the first snapshot ancestor a;
             # P_child_new = P_child_old P_a_old^-1 P_a_new
             for k in m.valid_kf_ids():
@@ -561,6 +644,9 @@ class LoopCloser:
                 trel = before[k][1] - Rrel @ ta_o
                 m.kf_R[k] = Rrel @ m.kf_R[a]
                 m.kf_t[k] = Rrel @ m.kf_t[a] + trel
+                if vi:
+                    # the world velocity rides the anchor's world correction
+                    m.kf_vel[k] = m.kf_R[a].T @ Ra_o @ m.kf_vel[k]
             live = m.mp_valid[pts]
             m.mp_pos[pts[live]] = Xg[live]
             in_pts = np.zeros(m.n_mp, bool)
@@ -602,7 +688,8 @@ class LoopCloser:
 
         def run():
             with T.stage("gba.solve"):
-                solved = self._solve_gba(snap, n_iters=n_iters)
+                solved = (self._solve_gba_vi(snap) if snap.get("kind") == "vi"
+                          else self._solve_gba(snap, n_iters=n_iters))
             if solved is not None:
                 with T.stage("gba.apply"):
                     self._apply_gba(snap, solved)

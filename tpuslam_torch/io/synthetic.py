@@ -6,11 +6,12 @@ box whose five faces carry procedural textures; rendering is exact
 perspective projection with bilinear texture sampling. For the same seed
 and parameters the frames are bitwise equal to the JAX package's.
 
-Ported: the textures, the room, the trajectory, the pinhole renderer with
-its exact depth output, and `SyntheticSequence.frame` / `frame_rgbd` /
-`timestamps` / `gt_pose_cw`. Not ported: the fisheye
-(camera.unproject) rendering branch, the IMU samples with the trajectory
-derivatives they need, and the on-disk render cache.
+Ported: the textures, the room, the trajectory with its closed-form
+derivatives, the pinhole renderer with its exact depth output, the
+perfect IMU samples (`imu_between`, bitwise equal to tpuslam's) and
+`SyntheticSequence.frame` / `frame_rgbd` / `timestamps` / `gt_pose_cw`.
+Not ported: the fisheye (camera.unproject) rendering branch and the
+on-disk render cache.
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+
+GRAVITY = 9.81
 
 
 def _smooth_texture(rng, n=512, octaves=5):
@@ -156,6 +159,36 @@ class Trajectory:
         z = sz / 2 + 0.3 * np.sin(0.3 * t + 1.0)
         return np.stack([x, y, z], -1)
 
+    def vel(self, t):
+        t = np.asarray(t, np.float64)
+        z = np.zeros_like(t)
+        if self.kind == "loop":
+            c, r, w = self._loop_params
+            return np.stack([
+                -r * w * np.sin(w * t), r * w * np.cos(w * t),
+                0.1 * 0.3 * np.cos(0.3 * t)], -1)
+        dwob = 0.18 * 1.5 * np.cos(1.5 * t) if self.kind == "vi_excite" else z
+        return np.stack(
+            [self.speed + z,
+             0.6 * 0.4 * np.cos(0.4 * t) + dwob,
+             0.3 * 0.3 * np.cos(0.3 * t + 1.0)],
+            -1,
+        )
+
+    def acc(self, t):
+        t = np.asarray(t, np.float64)
+        z = np.zeros_like(t)
+        if self.kind == "loop":
+            c, r, w = self._loop_params
+            return np.stack([
+                -r * w * w * np.cos(w * t), -r * w * w * np.sin(w * t),
+                -0.1 * 0.09 * np.sin(0.3 * t)], -1)
+        awob = -0.18 * 2.25 * np.sin(1.5 * t) if self.kind == "vi_excite" else z
+        return np.stack(
+            [z, -0.6 * 0.16 * np.sin(0.4 * t) + awob,
+             -0.3 * 0.09 * np.sin(0.3 * t + 1.0)], -1
+        )
+
     def yaw_pitch(self, t):
         t = np.asarray(t, np.float64)
         if self.kind == "loop":
@@ -172,6 +205,25 @@ class Trajectory:
         yaw = 0.45 + 0.08 * np.sin(0.25 * t)
         pitch = 0.05 * np.sin(0.2 * t + 0.5)
         return yaw, pitch
+
+    def yaw_pitch_rates(self, t):
+        t = np.asarray(t, np.float64)
+        if self.kind == "loop":
+            c, r, w = self._loop_params
+            return w + np.zeros_like(t), 0.03 * 0.2 * np.cos(0.2 * t)
+        dyaw = 0.08 * 0.25 * np.cos(0.25 * t)
+        dpitch = 0.05 * 0.2 * np.cos(0.2 * t + 0.5)
+        return dyaw, dpitch
+
+    def omega_world(self, t):
+        dyaw, dpitch = self.yaw_pitch_rates(t)
+        yaw, _ = self.yaw_pitch(t)
+        # omega = dyaw * ez + dpitch * (Rz ey)
+        ez = np.array([0.0, 0.0, 1.0])
+        ey = np.array([0.0, 1.0, 0.0])
+        cz, sz_ = np.cos(yaw), np.sin(yaw)
+        Rz = np.array([[cz, -sz_, 0], [sz_, cz, 0], [0, 0, 1]])
+        return dyaw * ez + dpitch * (Rz @ ey)
 
     def R_wc(self, t):
         """camera->world. Base orientation: optical axis +x(world), camera
@@ -245,11 +297,11 @@ def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy, return_depth=False):
 
 
 class SyntheticSequence:
-    """Stereo pinhole sequence generator with ground-truth poses."""
+    """Stereo pinhole sequence generator with ground-truth poses and IMU."""
 
     def __init__(self, seed=0, height=240, width=376, fx=200.0, fy=200.0,
                  cx=None, cy=None, fps=10.0, n_frames=40, speed=0.5,
-                 baseline=0.1, kind="forward_arc", Trl=None):
+                 baseline=0.1, imu_rate=200.0, kind="forward_arc", Trl=None):
         """Trl [4x4] right-from-left rig extrinsic (default: a pure
         x-baseline)."""
         rng = np.random.RandomState(seed)
@@ -262,6 +314,7 @@ class SyntheticSequence:
         self.fps = fps
         self.n_frames = n_frames
         self.baseline = baseline
+        self.imu_rate = imu_rate
         if Trl is None:
             Trl = np.eye(4)
             Trl[:3, 3] = [-baseline, 0.0, 0.0]
@@ -288,3 +341,20 @@ class SyntheticSequence:
         Rcw, tcw = self.traj.pose_cw(i / self.fps)
         return render(self.planes, Rcw, tcw, self.height, self.width,
                       self.fx, self.fy, self.cx, self.cy, return_depth=True)
+
+    def imu_between(self, t0, t1):
+        """Perfect IMU samples in (t0, t1]: (t, gyro_body [3], acc_body [3]).
+
+        The accelerometer measures specific force, a_body = R_cw (a_world -
+        g) with g = (0, 0, -9.81), so at rest it reads +g up. Body frame ==
+        camera frame (Tbc = I)."""
+        dt = 1.0 / self.imu_rate
+        ts = np.arange(np.floor(t0 / dt) * dt + dt, t1 + 1e-9, dt)
+        out_t, out_w, out_a = [], [], []
+        g_world = np.array([0.0, 0.0, -GRAVITY])
+        for t in ts:
+            Rcw, _ = self.traj.pose_cw(t)
+            out_t.append(t)
+            out_w.append(Rcw @ self.traj.omega_world(t))
+            out_a.append(Rcw @ (self.traj.acc(t) - g_world))
+        return np.array(out_t), np.array(out_w), np.array(out_a)

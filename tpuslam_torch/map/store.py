@@ -551,6 +551,9 @@ ARRAY_FIELDS = (
     "mp_pos", "mp_normal", "mp_min_dist", "mp_max_dist", "mp_bits", "mp_valid",
     "mp_first_kf", "mp_visible", "mp_found", "mp_replaced_by", "scale_factors")
 GRAPH_FIELDS = ("mp_obs", "covis", "kf_tcp")
+# per keyframe: the preintegration dict from the previous KF and the raw
+# (w, a, dt) window it integrated, or None
+INERTIAL_FIELDS = ("kf_preint", "kf_imu")
 SCALAR_FIELDS = ("n_kf", "n_mp", "map_id", "n_levels", "imu_initialized", "inertial_ba1",
                  "inertial_ba2", "bad_imu", "map_version", "current_map_id",
                  "n_maps_created")
@@ -565,7 +568,12 @@ def map_state(m) -> tuple[dict, list]:
     import copy
 
     arrays = {k: np.array(getattr(m, k)) for k in ARRAY_FIELDS}
-    arrays.update({k: copy.deepcopy(getattr(m, k)) for k in GRAPH_FIELDS + SCALAR_FIELDS})
+    arrays.update({k: copy.deepcopy(getattr(m, k))
+                   for k in GRAPH_FIELDS + SCALAR_FIELDS + INERTIAL_FIELDS})
+    for k in INERTIAL_FIELDS:
+        arrays[k] = [None if x is None else
+                     ({n: np.array(v) for n, v in x.items()} if isinstance(x, dict)
+                      else tuple(np.array(v) for v in x)) for x in arrays[k]]
     feats = [None if f is None else {k: (None if getattr(f, k) is None
                                          else np.array(getattr(f, k)))
                                      for k in FEATURE_FIELDS}
@@ -578,8 +586,9 @@ def map_from_numpy(arrays: dict, kf_feats: list) -> SlamMap:
     SlamMap: `arrays` maps every field of ARRAY_FIELDS, GRAPH_FIELDS and
     SCALAR_FIELDS to its value (numpy arrays; lists of dicts for mp_obs
     and covis; a list of (Rcp, tcp) or None for kf_tcp), `kf_feats` gives
-    one dict of FrameFeatures fields (or None) per keyframe slot. The
-    native observation index is rebuilt from mp_obs."""
+    one dict of FrameFeatures fields (or None) per keyframe slot; the
+    INERTIAL_FIELDS are carried where `arrays` has them. The native
+    observation index is rebuilt from mp_obs."""
     sf = np.asarray(arrays["scale_factors"])
     m = SlamMap(int(arrays["kf_mp"].shape[1]), scale=float(sf[1]), n_levels=len(sf),
                 map_id=int(arrays["map_id"]))
@@ -592,7 +601,8 @@ def map_from_numpy(arrays: dict, kf_feats: list) -> SlamMap:
     cap = len(m.kf_R)
     m.kf_feats = [None if f is None else FrameFeatures(**f) for f in kf_feats]
     m.kf_feats += [None] * (cap - len(m.kf_feats))
-    m.kf_preint = [None] * cap
-    m.kf_imu = [None] * cap
+    for k in INERTIAL_FIELDS:
+        vals = list(arrays.get(k, []))
+        setattr(m, k, vals + [None] * (cap - len(vals)))
     m.rebuild_native()
     return m

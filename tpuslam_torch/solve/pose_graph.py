@@ -11,8 +11,9 @@ the edge blocks. tpuslam's `lax.scan` loops are Python loops over their
 fixed counts with masked (torch.where) accept/reject, so no iteration
 waits on the device.
 
-The 4-DoF inertial variant (OptimizeEssentialGraph4DoF, reached only on an
-IMU-initialized map) waits for ROADMAP item "the IMU stack".
+On an IMU-initialized map the graph is the 4-DoF variant
+(OptimizeEssentialGraph4DoF, Optimizer.cc:8305): gravity pins pitch and
+roll and the scale is metric, so only yaw and translation relax.
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..core.lie import sim3_compose, sim3_exp, sim3_inverse, sim3_log
+from ..core.lie import (se3_compose, se3_inverse, se3_log, sim3_compose, sim3_exp,
+                        sim3_inverse, sim3_log)
 from ..core.linalg import spd_solve
 from ..utils import DEFAULT_DEVICE, resolve_device
 
@@ -143,6 +145,86 @@ def pose_graph_solve(s, R, t, edges_i, edges_j, s_m, R_m, t_m, edge_w, fixed,
     return state + (cost,)
 
 
+def _rz(yaw):
+    c, s = torch.cos(yaw), torch.sin(yaw)
+    z, o = torch.zeros_like(c), torch.ones_like(c)
+    return torch.stack([torch.stack([c, -s, z], -1), torch.stack([s, c, z], -1),
+                        torch.stack([z, z, o], -1)], -2)
+
+
+def _edge4_residual(eps_i, eps_j, Ri, ti, Rj, tj, Rm, tm):
+    """6-dim SE(3) residual with 4-dim world-frame increments (tau[3], yaw)
+    per vertex (ref Edge4DoF / VertexPose4DoF src/G2oTypes.h:833,152):
+    Tcw' = Tcw o G^-1, G = (Rz(yaw), tau). eps [1,4] is shared by every
+    edge, so one jacfwd yields each edge's blocks."""
+    def corr(eps, R, t):
+        Rn = R @ _rz(eps[..., 3]).transpose(-1, -2)
+        return Rn, t - (Rn @ eps[..., :3, None])[..., 0]
+
+    Ri2, ti2 = corr(eps_i, Ri, ti)
+    Rj2, tj2 = corr(eps_j, Rj, tj)
+    R1, t1 = se3_compose(Ri2, ti2, *se3_inverse(Rj2, tj2))
+    return se3_log(*se3_compose(Rm, tm, R1, t1))
+
+
+def pose_graph_solve_4dof(R, t, edges_i, edges_j, R_m, t_m, edge_w, fixed, n_iters: int = 20,
+                          lam: float = 1e-6, use_cg: bool = False, n_cg: int = 150):
+    """4-DoF (yaw + translation) essential graph for inertial maps (ref
+    OptimizeEssentialGraph4DoF Optimizer.cc:8305): the blocked structure of
+    the Sim3 solve with D = 4. Returns (R, t, cost)."""
+    K, D = R.shape[0], 4
+    dtype, dev = t.dtype, t.device
+    ei, ej = edges_i.long(), edges_j.long()
+    z4 = torch.zeros(1, D, dtype=dtype, device=dev)
+    eyeD = torch.eye(D, dtype=dtype, device=dev)
+    w = edge_w.to(dtype)
+
+    def edge_args(state):
+        R_, t_ = state
+        return (R_[ei], t_[ei], R_[ej], t_[ej], R_m, t_m)
+
+    def cost_terms(state):
+        return w * (_edge4_residual(z4, z4, *edge_args(state)) ** 2).sum(-1)
+
+    free = (~fixed)[:, None].expand(K, D)
+    freeF = free.reshape(K * D)
+    state = (R, t)
+    mu = torch.tensor(1e-5, dtype=dtype, device=dev)
+    cost = cost_terms(state).sum()
+    for _ in range(n_iters):
+        args = edge_args(state)
+        r = _edge4_residual(z4, z4, *args)                                 # [E,6]
+        Ji, Jj = (J[:, :, 0] for J in torch.func.jacfwd(_edge4_residual, argnums=(0, 1))(
+            z4, z4, *args))                                                # [E,6,4]
+        JiT = Ji.transpose(1, 2) * w[:, None, None]
+        JjT = Jj.transpose(1, 2) * w[:, None, None]
+        Hii = _index_add(K, ei, JiT @ Ji) + _index_add(K, ej, JjT @ Jj)
+        b = (_index_add(K, ei, -torch.einsum("eij,ej->ei", JiT, r))
+             + _index_add(K, ej, -torch.einsum("eij,ej->ei", JjT, r)))
+        diag = torch.diagonal(Hii, dim1=-2, dim2=-1)
+        Hd = Hii + mu * eyeD * diag[:, None, :] + lam * eyeD
+        if use_cg:
+            dx = _graph_pcg(Hd, JiT @ Jj, ei, ej, b, free, n_cg)
+        else:
+            H = torch.zeros((K, K, D, D), dtype=dtype, device=dev)
+            H[torch.arange(K, device=dev), torch.arange(K, device=dev)] = Hd
+            H.index_put_((ei, ej), JiT @ Jj, accumulate=True)
+            H.index_put_((ej, ei), JjT @ Ji, accumulate=True)
+            S = H.permute(0, 2, 1, 3).reshape(K * D, K * D)
+            S = torch.where(freeF[:, None] & freeF[None, :], S, 0.0)
+            S = S + torch.diag(torch.where(freeF, 0.0, 1.0).to(dtype))
+            dx = spd_solve(S, torch.where(freeF, b.reshape(-1), 0.0)).reshape(K, D)
+        Rn = state[0] @ _rz(dx[:, 3]).transpose(-1, -2)
+        new = (Rn, state[1] - (Rn @ dx[:, :3, None])[..., 0])
+        # f32-safe acceptance: per-edge cost differences, then the sum
+        delta = (cost_terms(new) - cost_terms(state)).sum()
+        accept = delta < 0
+        state = tuple(torch.where(accept, a, b_) for a, b_ in zip(new, state))
+        mu = torch.clamp(torch.where(accept, mu * 0.3, mu * 5.0), 1e-9, 1e6)
+        cost = cost + torch.where(accept, delta, 0.0)
+    return state + (cost,)
+
+
 def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool = False,
                              min_covis_weight=100, n_iters: int = 20, old_poses=None,
                              four_dof: bool = False, fix_kfs=None, device=DEFAULT_DEVICE,
@@ -157,10 +239,9 @@ def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool =
     (the pre-correction poses, ref NonCorrectedSim3) where given. Writes the
     poses back, translation rescaled by 1/s (ref :2610-2635), and returns
     {kf: (s, R, t)} for the map-point correction. `device`/`dtype`: where
-    and in what float type the solve runs."""
-    if four_dof:
-        raise NotImplementedError(
-            "the 4-DoF inertial essential graph is ROADMAP item 'the IMU stack'")
+    and in what float type the solve runs. four_dof: the inertial map's
+    graph (yaw + translation; the Sim3 seeds and measurements collapse to
+    SE(3), t / s; ref LoopClosing.cc:1218-1224)."""
     device = resolve_device(device)
     kfs = list(m.valid_kf_ids())
     idx = {int(k): i for i, k in enumerate(kfs)}
@@ -234,10 +315,25 @@ def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool =
     # past ~256 vertices the dense [7K x 7K] factorization is the cost:
     # matrix-free PCG (the reference's sparse-Cholesky role)
     use_cg = K > 256
+    n_cg = int(min(max(2 * K, 100), 400))
+    fixed_t = torch.as_tensor(fixed, device=device)
+    if four_dof:
+        Rf, tf, _ = pose_graph_solve_4dof(
+            f(R0), f(t0 / s0[:, None]), i(ei), i(ej), f(np.stack(Rm)),
+            f(np.stack(tm) / np.array(sm)[:, None]), f(ew), fixed_t, n_iters=n_iters,
+            use_cg=use_cg, n_cg=n_cg)
+        Rf = Rf.cpu().numpy().astype(np.float64)
+        tf = tf.cpu().numpy().astype(np.float64)
+        out = {}
+        for k in kfs:
+            i_ = idx[int(k)]
+            out[int(k)] = (1.0, Rf[i_], tf[i_])
+            m.kf_R[k] = Rf[i_]
+            m.kf_t[k] = tf[i_]
+        return out
     sf, Rf, tf, _ = pose_graph_solve(
         f(s0), f(R0), f(t0), i(ei), i(ej), f(sm), f(np.stack(Rm)), f(np.stack(tm)), f(ew),
-        torch.as_tensor(fixed, device=device), n_iters=n_iters, fix_scale=fix_scale,
-        use_cg=use_cg, n_cg=int(min(max(2 * K, 100), 400)))
+        fixed_t, n_iters=n_iters, fix_scale=fix_scale, use_cg=use_cg, n_cg=n_cg)
     sf = sf.cpu().numpy().astype(np.float64)
     Rf = Rf.cpu().numpy().astype(np.float64)
     tf = tf.cpu().numpy().astype(np.float64)

@@ -12,7 +12,9 @@ preconditioner is the exact block-Jacobi of S. The JAX version's
 `lax.while_loop` is a masked loop over the fixed iteration count: once
 the residual falls below the tolerance the state stops changing, so the
 result is the same and the solve never waits on the device. The 15-dim
-visual-inertial variant waits for the IMU slice.
+visual-inertial variant (`vi_matvec`, `pcg_solve_vi`) is the solver of
+tpuslam's distributed FullInertialBA; the port has it ahead of that route
+(ROADMAP item "distribution").
 """
 
 from __future__ import annotations
@@ -65,6 +67,76 @@ def pcg_solve(b, Hpp_d, Hll_inv, Wo, obs_kf, obs_pt, free6, n_iters: int = 30,
 
     def A(v):
         return schur_matvec(v * fmask, Hpp_d, Hll_inv, Wo, obs_kf, obs_pt) * fmask
+
+    def M(r):
+        return torch.einsum("kij,kj->ki", Dinv, r) * fmask
+
+    x = torch.zeros_like(b)
+    r = b
+    p = M(r)
+    rz = (r * p).sum()
+    bnorm = torch.clamp((b * b).sum(), min=1e-30)
+    for _ in range(n_iters):
+        active = (r * r).sum() > tol * bnorm
+        Ap = A(p)
+        denom = (p * Ap).sum()
+        alpha = torch.where(torch.abs(denom) > 1e-30, rz / denom, 0.0)
+        x_n = x + alpha * p
+        r_n = r - alpha * Ap
+        z = M(r_n)
+        rz_n = (r_n * z).sum()
+        beta = torch.where(torch.abs(rz) > 1e-30, rz_n / rz, 0.0)
+        p_n = z + beta * p
+        x = torch.where(active, x_n, x)
+        r = torch.where(active, r_n, r)
+        p = torch.where(active, p_n, p)
+        rz = torch.where(active, rz_n, rz)
+    return x
+
+
+# --------------------------------------------------------------------------
+# 15-dim visual-inertial reduced system (the distributed FullInertialBA's)
+# --------------------------------------------------------------------------
+
+
+def vi_matvec(x, Hdiag, Hoff, edges_a, edges_b, Hll_inv, Wo, obs_kf, obs_pt):
+    """(S x) for the 15-dim VI reduced system: block-diagonal Hdiag
+    [K,15,15] (visual pose blocks + inertial / RW / prior diagonals +
+    damping), the inertial chain off-diagonals Hoff [E,15,15] (block a->b;
+    its transpose couples b->a), minus the visually marginalized landmark
+    term on the 6 pose dims (ref FullInertialBA's BlockSolverX system,
+    Optimizer.cc:430, here matrix-free)."""
+    K = Hdiag.shape[0]
+    P = Hll_inv.shape[0]
+    out = torch.einsum("kij,kj->ki", Hdiag, x)
+    out = out.index_add(0, edges_a, torch.einsum("eij,ej->ei", Hoff, x[edges_b]))
+    out = out.index_add(0, edges_b, torch.einsum("eji,ej->ei", Hoff, x[edges_a]))
+    y = _scatter_add(P, obs_pt, torch.einsum("oij,oi->oj", Wo, x[:, :6][obs_kf]))
+    z = torch.einsum("pij,pj->pi", Hll_inv, y)
+    o6 = _scatter_add(K, obs_kf, torch.einsum("oij,oj->oi", Wo, z[obs_pt]))
+    return torch.cat([out[:, :6] - o6, out[:, 6:]], dim=1)
+
+
+def pcg_solve_vi(b, Hdiag, Hoff, edges_a, edges_b, Hll_inv, Wo, obs_kf, obs_pt, free,
+                 n_iters: int = 100, tol: float = 1e-12):
+    """Block-Jacobi PCG on the 15-dim VI reduced system; b / free [K,15].
+    The tolerance is tight by default: the VI system's weakly observable
+    scale / bias valley converges last in CG, and a loosely truncated step
+    walks LM to another point of the valley (tpuslam's measurement)."""
+    dtype = b.dtype
+    K, Dm = b.shape
+    M6 = torch.einsum("oij,ojk,olk->oil", Wo, Hll_inv[obs_pt], Wo)
+    D = torch.cat([torch.cat([Hdiag[:, :6, :6] - _scatter_add(K, obs_kf, M6),
+                              Hdiag[:, :6, 6:]], 2), Hdiag[:, 6:, :]], 1)
+    fmask = free.to(dtype)
+    eyeD = torch.eye(Dm, dtype=dtype, device=b.device)
+    D = D * fmask[:, :, None] * fmask[:, None, :] + eyeD * (1.0 - fmask)[:, None, :] * eyeD
+    Dinv = _inv_blocks(D + 1e-9 * eyeD)
+    b = b * fmask
+
+    def A(v):
+        return vi_matvec(v * fmask, Hdiag, Hoff, edges_a, edges_b, Hll_inv, Wo, obs_kf,
+                         obs_pt) * fmask
 
     def M(r):
         return torch.einsum("kij,kj->ki", Dinv, r) * fmask
