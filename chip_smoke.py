@@ -60,7 +60,24 @@ Phases, each raising on failure:
      median keyframe-velocity error under 0.2 m/s and no mapper errors;
      frames before the init take the host path (pose-LM launches), frames
      after it the fused visual-inertial step: 1 patch-gather and 4 pose-LM
-     launches, then pose_inertial_solve (its calls per frame counted).
+     launches, then pose_inertial_solve (its calls per frame counted);
+  8. fisheye stereo: System(camera2=, Tlr=).track_stereo at TUM-VI's
+     512x512 over 40 frames at 20 fps (0.5 m/s) rendered by the port's
+     Kannala-Brandt renderer from seed 0, the rig of
+     tests/test_e2e_fisheye.py with fx, fy, cx, cy doubled (its k's kept),
+     lapping (0, 511), a 0.2 m baseline: it must end OK with >= 2
+     keyframes and > 100 map points, the first keyframe with > 50
+     triangulated depths and u_right = bf / depth, a Horn scale within 5 %
+     of 1, an unscaled ATE under 8 cm, a median first-keyframe depth in
+     (0.5, 8) m and no mapper errors; every frame makes exactly 2
+     patch-gather launches (left and right extraction) and the phase no
+     pose-LM launch (KB8 solves take the camera-generic solver, as in
+     tpuslam). The patch gather's inputs on frame 0 (the left and the right
+     image's 8 levels and corners) are kept, and after the run the kernel
+     is held on them against its plain version and the unfold library call
+     (bitwise) and timed as in phase 2. One generic KB8 pose solve is timed
+     on its own and its CUDA kernels counted (torch.profiler must see them).
+Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame), the nvidia-smi line and {"ok": true, "device": {...}}. Needs
 one CUDA card; fails without one.
@@ -108,6 +125,11 @@ CIRCUMFERENCE = 2 * np.pi * 1.6
 N_RGBD = 40            # phase 6
 N_VI = 55              # phase 7: the frames of tests/test_e2e_mono_inertial.py
 VI_NOISE = dict(noise_gyro=1e-4, noise_acc=1e-3, walk_gyro=1e-6, walk_acc=1e-5)
+N_FISH, FISH_FPS, FISH_WH = 40, 20, 512   # phase 8: TUM-VI's camera rate and size
+FISH_BASELINE = 0.2
+# tests/test_e2e_fisheye.py's 256 px rig; phase 8 doubles fx, fy, cx, cy
+KB_L = [95.0, 95.0, 128.0, 128.0, 0.0034823894, 0.00071503485, -0.0020532361, 0.00020293674]
+KB_R = [94.8, 94.9, 127.6, 128.3, 0.0034003171, 0.0017662782, -0.0026631257, 0.00032995174]
 
 
 def log(*a):
@@ -268,6 +290,54 @@ def pose_problem(n, stereo, seed, dev, n_valid=None, bf=None, f64=False):
                      FX, FY, cx, cy, bf]
 
 
+def patch_compare(levels, yx, budgets, size, what):
+    """The patch gather on one image's padded blurred levels and corners:
+    bitwise equal to its plain version and to the unfold library call, each
+    timed host-inclusive and device-only, beside its bound."""
+    import torch
+
+    from tpuslam_torch.ops import patch_cuda
+
+    corners = list(torch.split(yx, list(budgets)))
+
+    def kernel():
+        return patch_cuda.extract_patches_levels(levels, yx, budgets, size)
+
+    def plain():
+        return patch_cuda.extract_patches_levels_plain(levels, yx, budgets, size)
+
+    def library():  # one PyTorch call per level: every window, then the corners'
+        return torch.cat([lv.unfold(0, size, 1).unfold(1, size, 1)[c[:, 0].long(),
+                                                                    c[:, 1].long()]
+                          for lv, c in zip(levels, corners)])
+
+    got, ref, lib = kernel(), plain(), library()
+    torch.cuda.synchronize()
+    check(got.shape == (N_FEATURES, size, size), f"{what}: patch shape {tuple(got.shape)}")
+    check(torch.equal(got, ref), f"{what}: patch gather differs from its plain version")
+    check(torch.equal(lib, ref), f"{what}: the unfold library call differs from the plain gather")
+    timed = {}
+    for rep in range(2):  # kernel, plain, library, then in reverse
+        order = (kernel, plain, library) if rep == 0 else (library, plain, kernel)
+        for fn in order:
+            timed.setdefault(fn, []).append((median_ms(fn), device_ms(fn)))
+    host_ms, dev_ms = (float(np.median([t[i] for t in timed[kernel]])) for i in (0, 1))
+    plain_ms, plain_dev = (float(np.median([t[i] for t in timed[plain]])) for i in (0, 1))
+    lib_ms, lib_dev = (float(np.median([t[i] for t in timed[library]])) for i in (0, 1))
+    n_bytes = window_bytes(levels, corners, size) + yx.numel() * 4 + got.numel() * 4
+    b_ms, b_by, b_res = bound(n_bytes, 0)
+    log(f"[kernels] patch gather, {what}: bitwise equal to its plain version and to the unfold "
+        f"library call over {len(levels)} levels {[tuple(lv.shape) for lv in levels]} "
+        f"(K={list(budgets)}), one launch per image: kernel device {dev_ms:.5f} ms, "
+        f"host-inclusive {host_ms:.5f} ms; plain {plain_ms:.5f} ms (device {plain_dev:.5f}); "
+        f"library (8 unfold calls) {lib_ms:.5f} ms (device {lib_dev:.5f}); bound {b_ms:.5f} ms "
+        f"({n_bytes} bytes: the output, the corners and the union of the windows on each level; "
+        f"{b_res}); the bound is {b_ms / dev_ms:.3f} of the device time")
+    return dict(max_abs_err=float((got - ref).abs().max()), ms=host_ms, device_ms=dev_ms,
+                plain_ms=plain_ms, plain_device_ms=plain_dev, bound_ms=b_ms, bound_by=b_by,
+                bound_resource=b_res, bytes=n_bytes, library_ms=lib_ms, library_device_ms=lib_dev)
+
+
 def phase_kernels(dev, seq):
     """Kernel vs plain version on the card at main-path shapes; each timed
     host-inclusive (events around the wrapper) and device-only (a replayed
@@ -276,7 +346,6 @@ def phase_kernels(dev, seq):
     import torch.nn.functional as F
 
     from tpuslam_torch.engine.config import OrbConfig
-    from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.ops.fast import _border_mask, cell_threshold_gate, fast_score, nms3x3
     from tpuslam_torch.ops.image import build_pyramid, gaussian_blur, gaussian_kernel1d
     from tpuslam_torch.ops.orb import DESC_R, HALF_PATCH, PAD, _select_level_keypoints
@@ -300,49 +369,10 @@ def phase_kernels(dev, seq):
                             mode="replicate")[0, 0].contiguous())
         corners.append(torch.stack([xy[:, 1], xy[:, 0]], -1) + (PAD - DESC_R))
     yx = torch.cat(corners).contiguous()
-    size = 2 * DESC_R + 1
-    got = patch_cuda.extract_patches_levels(levels, yx, budgets, size)
-    ref = patch_cuda.extract_patches_levels_plain(levels, yx, budgets, size)
-    starts = np.cumsum([0] + budgets)
-
-    def library():  # one PyTorch call per level: every window, then the corners'
-        return [lv.unfold(0, size, 1).unfold(1, size, 1)[c[:, 0].long(), c[:, 1].long()]
-                for lv, c in zip(levels, corners)]
-
-    lib = torch.cat(library())
-    torch.cuda.synchronize()
-    check(got.shape == (N_FEATURES, size, size), f"patch shape {tuple(got.shape)}")
-    check(torch.equal(got, ref), "patch gather differs from its plain version")
-    check(torch.equal(lib, ref), "the unfold library call differs from the plain gather")
-    err = float((got - ref).abs().max())
-    timed = {}
-    for rep in range(2):  # kernel, plain, library, then in reverse
-        order = ("kernel", "plain", "library") if rep == 0 else ("library", "plain", "kernel")
-        for what in order:
-            fn = {"kernel": lambda: patch_cuda.extract_patches_levels(levels, yx, budgets, size),
-                  "plain": lambda: patch_cuda.extract_patches_levels_plain(levels, yx, budgets,
-                                                                           size),
-                  "library": library}[what]
-            timed.setdefault(what, []).append((median_ms(fn), device_ms(fn)))
-    host_ms, dev_ms = (float(np.median([t[i] for t in timed["kernel"]])) for i in (0, 1))
-    plain_ms, plain_dev = (float(np.median([t[i] for t in timed["plain"]])) for i in (0, 1))
-    lib_ms, lib_dev = (float(np.median([t[i] for t in timed["library"]])) for i in (0, 1))
-    n_bytes = window_bytes(levels, corners, size) + yx.numel() * 4 + got.numel() * 4
-    b_ms, b_by, b_res = bound(n_bytes, 0)
-    log(f"[kernels] patch gather: bitwise equal to its plain version and to the unfold library "
-        f"call over {len(levels)} levels (K={budgets}, starts {starts.tolist()}), one launch "
-        f"per image: kernel device {dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms; plain "
-        f"{plain_ms:.5f} ms (device {plain_dev:.5f}); library (8 unfold calls) {lib_ms:.5f} ms "
-        f"(device {lib_dev:.5f}); bound {b_ms:.5f} ms ({n_bytes} bytes: the output, the "
-        f"corners and the union of the windows on each level; {b_res}); "
-        f"the bound is {b_ms / dev_ms:.3f} of the device time")
+    rec = patch_compare(levels, yx, budgets, 2 * DESC_R + 1, f"pinhole {W}x{H}")
     records.append(dict(name="patch_gather", route="cuda",
                         source="tpuslam_torch/csrc/patch.cu",
-                        replaces="tpuslam/ops/patch_pallas.py:88",
-                        max_abs_err=err, ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms,
-                        plain_device_ms=plain_dev, bound_ms=b_ms, bound_by=b_by,
-                        bound_resource=b_res, bytes=n_bytes,
-                        library_ms=lib_ms, library_device_ms=lib_dev,
+                        replaces="tpuslam/ops/patch_pallas.py:88", **rec,
                         library="Tensor.unfold(0, 37, 1).unfold(1, 37, 1)[rows, cols], "
                                 "one call per level"))
 
@@ -547,25 +577,6 @@ def phase_slice(dev, seq, all_frames):
     return launches
 
 
-def horn_align(est, gt, with_scale):
-    """Horn alignment of est onto gt (the protocol of
-    tpuslam/eval/ate.py): R, t, s with gt ~ s * R @ est + t."""
-    mc, dc = est - est.mean(0), gt - gt.mean(0)
-    U, S, Vt = np.linalg.svd(mc.T @ dc)
-    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
-    R = (U @ D @ Vt).T
-    s = float(np.trace(np.diag(S) @ D) / (mc ** 2).sum()) if with_scale else 1.0
-    return R, gt.mean(0) - s * R @ est.mean(0), s
-
-
-def ate(est, gt, with_scale):
-    """RMSE of the positions after Horn alignment of est onto gt and the
-    alignment's scale."""
-    R, t, s = horn_align(est, gt, with_scale)
-    res = s * est @ R.T + t - gt
-    return float(np.sqrt((res ** 2).sum(1).mean())), s
-
-
 def phase_system(dev, seq, frames, smi):
     """System.track_stereo over N_SYSTEM frames, synchronous then
     async + pipelined; returns the launch counts of each run."""
@@ -573,8 +584,9 @@ def phase_system(dev, seq, frames, smi):
 
     from tpuslam_torch.cameras import Pinhole
     from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
-    from tpuslam_torch.engine.system import System
+    from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
@@ -584,7 +596,8 @@ def phase_system(dev, seq, frames, smi):
     for name, asyn in (("a_sync", False), ("b_async_pipelined", True)):
         cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
                          tracking=TrackingConfig(min_stereo_init_features=200, pipelined=asyn))
-        slam = System(cam, cfg, bf=FX * BASELINE, async_mapping=asyn, device=dev)
+        slam = System(cam, cfg, sensor=Sensor.STEREO, bf=FX * BASELINE, async_mapping=asyn,
+                      device=dev)
         GLOBAL_TIMER.samples.clear()
         patch_cuda.counter.launches = 0
         pose_opt_cuda.counter.launches = 0
@@ -657,6 +670,8 @@ def phase_mono_loop(dev, smi):
     from tpuslam_torch.engine.frontend import Frontend
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import Frame, State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
+    from tpuslam_torch.eval.ate import horn_align
     from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.place import train_vocabulary
@@ -739,7 +754,7 @@ def phase_mono_loop(dev, smi):
     frame = Frame(fe.process(u8(seq.frame(i))), t, 10_000 + i)
     ok = slam.tracker._relocalize_bow(frame)
     kf = slam.tracker.ref_kf
-    R, tt, s = horn_align(est, gt_centers(seq, traj), True)
+    R, tt, s, _ = horn_align(est, gt_centers(seq, traj), True)
     Rcw, tcw = seq.gt_pose_cw(t)
     err = float(np.linalg.norm(s * R @ (-frame.R.T @ frame.t) + tt + Rcw.T @ tcw)) if ok else -1.0
     ang = float(np.degrees(np.arccos(np.clip((np.trace(R @ frame.R.T @ Rcw) - 1) / 2, -1, 1)))) \
@@ -760,6 +775,7 @@ def phase_rgbd(dev, smi):
     from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.solve import pose_opt_cuda
@@ -823,6 +839,8 @@ def phase_mono_vi(dev, smi):
     from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
+    from tpuslam_torch.eval.ate import horn_align
     from tpuslam_torch.imu.preintegration import ImuCalib
     from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.ops import patch_cuda
@@ -878,7 +896,7 @@ def phase_mono_vi(dev, smi):
     est = np.array([r[1:4] for r in traj])
     gt = gt_centers(seq, traj)
     rmse, scale = ate(est, gt, True)
-    R, _, s = horn_align(est, gt, True)
+    R, _, s, _ = horn_align(est, gt, True)
     vel_err = float(np.median([np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
                                for k in m.valid_kf_ids()]))
     steady = np.array(wall[WARMUP:])
@@ -914,6 +932,179 @@ def phase_mono_vi(dev, smi):
           "pose-inertial solve")
     check(sum(r["pose"] for r in host_pre) > 0, "mono_vi: no pose LM on the host path before init")
     return launches
+
+
+def kb8_pose_solve(dev, cam, n_valid=500, n=768, seed=4):
+    """One camera-generic KB8 pose solve at the fisheye host tracker's
+    shape (n_valid observations padded to n, f32): its wall time (median
+    of 10, synchronised) and the CUDA kernels one solve launches (from
+    torch.profiler, which must see at least one)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
+    from tpuslam_torch.solve.pose_opt_cuda import _se3_exp
+
+    rng = np.random.RandomState(seed)
+    theta = rng.uniform(0.0, np.deg2rad(75.0), n_valid)
+    phi = rng.uniform(-np.pi, np.pi, n_valid)
+    d = np.stack([np.sin(theta) * np.cos(phi), np.sin(theta) * np.sin(phi), np.cos(theta)], -1)
+    X = d * (rng.uniform(1.0, 6.0, n_valid) / d[:, 2])[:, None]
+    uv = cam.project_np(X) + rng.randn(n_valid, 2) * 0.5
+    uv[: n_valid // 10] += rng.randn(n_valid // 10, 2) * 40
+    pad = ((0, n - n_valid), (0, 0))
+    dR, dt = _se3_exp(torch.tensor([0.05, -0.02, 0.03, 0.02, -0.015, 0.01]))
+    valid = np.zeros(n, bool)
+    valid[:n_valid] = True
+    args = [dR.to(dev), dt.to(dev)] + [
+        torch.tensor(a, dtype=torch.float32, device=dev)
+        for a in (np.pad(X, pad), np.pad(np.concatenate([uv, -np.ones((n_valid, 1))], 1), pad),
+                  np.ones(n))] + [torch.zeros(n, dtype=torch.bool, device=dev),
+                                  torch.tensor(valid, device=dev),
+                                  cam.fx, cam.fy, cam.cx, cam.cy, cam.fx * FISH_BASELINE]
+    before = pose_opt_cuda.counter.launches
+
+    def solve():
+        return pose_optimize_best(*args, cam=cam.spec)
+
+    R, t, inl, _ = solve()
+    torch.cuda.synchronize()
+    check(pose_opt_cuda.counter.launches == before, "a KB8 solve launched the pose-LM kernel")
+    check(bool(torch.isfinite(R).all()) and int(inl.sum()) > 0.8 * n_valid,
+          "the generic KB8 pose solve failed")
+    err = float(np.linalg.norm(t.cpu().numpy()))
+    times = []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        solve()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        solve()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(evs, "torch.profiler saw no CUDA kernel in a generic KB8 pose solve")
+    busy = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    return float(np.median(times)), len(evs), busy, int(inl.sum()), err
+
+
+def phase_fisheye(dev, smi):
+    """System(camera2=, Tlr=).track_stereo over the fisheye rig; returns
+    the launch counts."""
+    import torch
+
+    from tpuslam_torch.cameras import KannalaBrandt8
+    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+    from tpuslam_torch.engine.system import Sensor, System
+    from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+    from tpuslam_torch.ops import orb, patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda, pose_opt_dispatch
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    def rig(p):
+        return [2 * v for v in p[:4]] + p[4:]
+
+    lap = (0, FISH_WH - 1)
+    cam = KannalaBrandt8(rig(KB_L), FISH_WH, FISH_WH, lapping=lap)
+    cam2 = KannalaBrandt8(rig(KB_R), FISH_WH, FISH_WH, lapping=lap)
+    Trl = np.eye(4)
+    Trl[:3, 3] = [-FISH_BASELINE, 0.0, 0.0]
+    seq = SyntheticSequence(seed=0, n_frames=N_FISH, fps=FISH_FPS, speed=0.5, camera=cam,
+                            camera2=cam2, Trl=Trl)
+    t0 = time.perf_counter()
+    frames = [(u8(seq.frame(i)), u8(seq.frame(i, right=True))) for i in range(N_FISH)]
+    log(f"[fisheye] rendered {N_FISH} KB8 stereo pairs {FISH_WH}x{FISH_WH} in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+    bf = cam.fx * FISH_BASELINE
+    cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE),
+                     tracking=TrackingConfig(min_stereo_init_features=150))
+    slam = System(cam, cfg, sensor=Sensor.STEREO, bf=bf, camera2=cam2, Tlr=np.linalg.inv(Trl),
+                  device=dev)
+    generic = []
+    real_solve = pose_opt_dispatch.pose_optimize
+
+    def counted(*a, **kw):  # the camera-generic solves, by frame
+        generic[-1] += 1
+        return real_solve(*a, **kw)
+
+    gathers = []   # the patch gather's inputs on frame 0: left, then right image
+    real_gather = orb.extract_patches_levels
+
+    def captured(levels, yx, budgets, size):
+        if len(gathers) < 2:
+            gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets), size))
+        return real_gather(levels, yx, budgets, size)
+
+    pose_opt_dispatch.pose_optimize = counted
+    orb.extract_patches_levels = captured
+    GLOBAL_TIMER.samples.clear()
+    patch_cuda.counter.launches = 0
+    pose_opt_cuda.counter.launches = 0
+    wall, per_frame = [], []
+    try:
+        for i in range(N_FISH):
+            generic.append(0)
+            before = patch_cuda.counter.launches
+            t1 = time.perf_counter()
+            slam.track_stereo(*frames[i], i / seq.fps)
+            wall.append((time.perf_counter() - t1) * 1e3)
+            per_frame.append(patch_cuda.counter.launches - before)
+        slam.shutdown()
+        torch.cuda.synchronize()
+    finally:
+        pose_opt_dispatch.pose_optimize = real_solve
+        orb.extract_patches_levels = real_gather
+    launches = {"patch_gather": patch_cuda.counter.launches,
+                "pose_lm": pose_opt_cuda.counter.launches}
+    # the kernel against its plain version on exactly what this path gave it
+    check(len(gathers) == 2, f"fisheye: {len(gathers)} patch gathers captured on frame 0")
+    shapes = {side: patch_compare(*g, f"fisheye {FISH_WH}x{FISH_WH} frame 0 {side}")
+              for side, g in zip(("left", "right"), gathers)}
+    m = slam.map
+    n_kf, n_mp = len(m.valid_kf_ids()), int(m.mp_valid[: m.n_mp].sum())
+    traj = slam.trajectory_tum()
+    est = np.array([r[1:4] for r in traj])
+    gt = gt_centers(seq, traj)
+    rmse, _ = ate_rmse(est, gt, False)
+    _, scale = ate_rmse(est, gt, True)
+    f = m.kf_feats[m.valid_kf_ids()[0]]
+    have = f.depth > 0
+    depths = f.depth[have]
+    ur_err = float(np.abs(f.u_right[have] * f.depth[have] / bf - 1.0).max()) if have.any() else 1.0
+    errors = slam.async_mapper.errors if slam.async_mapper is not None else []
+    steady = np.array(wall[WARMUP:])
+    log(f"[fisheye] state {slam.get_tracking_state().name}, {n_kf} KFs, {n_mp} map points, "
+        f"{len(traj)} trajectory rows, ATE {rmse * 100:.3f} cm, Horn scale {scale:.5f}; first "
+        f"KF: {int(have.sum())} depths, median {np.median(depths):.3f} m, max |u_right * depth / "
+        f"bf - 1| {ur_err:.2e}; mapper errors {len(errors)}")
+    log(f"[fisheye] track_stereo wall ms over frames {WARMUP}..{N_FISH - 1}: median "
+        f"{np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max {steady.max():.3f}; "
+        f"first frame {wall[0]:.1f} ms; card {smi}")
+    stage_table("fisheye", GLOBAL_TIMER)
+    log(f"[fisheye] launches {launches}; patch gather per frame {sorted(set(per_frame))}; "
+        f"generic KB8 pose solves per frame: mean {np.mean(generic):.3f}, "
+        f"{sorted(set(generic))}")
+    solve_ms, n_kernels, busy_ms, n_inl, t_err = kb8_pose_solve(dev, cam)
+    log(f"[fisheye] one generic KB8 pose solve (500 observations padded to 768, f32): wall "
+        f"{solve_ms:.3f} ms (median of 10, synchronised), {n_inl} inliers, translation error "
+        f"{t_err:.3g} m; CUDA kernels per solve {n_kernels}, device busy {busy_ms:.3f} ms "
+        f"(torch.profiler)")
+    check(slam.get_tracking_state() == State.OK, "fisheye: final state not OK")
+    check(n_kf >= 2 and n_mp > 100, f"fisheye: {n_kf} KFs / {n_mp} points")
+    check(have.sum() > 50 and ur_err <= 1e-5, "fisheye: first-KF depths or u_right = bf / depth")
+    check(len(traj) >= N_FISH - 2 and np.isfinite(est).all(), "fisheye: trajectory")
+    check(abs(scale - 1.0) < 0.05 and rmse < 0.08, f"fisheye: ATE {rmse} scale {scale}")
+    check(0.5 < np.median(depths) < 8.0 and (depths < 15.0).mean() > 0.8,
+          f"fisheye: first-KF depths median {np.median(depths)}")
+    check(not errors, f"fisheye: mapper errors {errors}")
+    check(per_frame == [2] * N_FISH, f"fisheye: patch-gather launches per frame {per_frame}")
+    check(launches["pose_lm"] == 0, f"fisheye: {launches['pose_lm']} pose-LM launches")
+    check(sum(generic) >= N_FISH - 1, "fisheye: frames without a generic KB8 pose solve")
+    return launches, shapes
 
 
 def main():
@@ -965,9 +1156,14 @@ def main():
     by_path["mono_loop"] = phase_mono_loop(dev, smi)
     by_path["rgbd"] = phase_rgbd(dev, smi)
     by_path["mono_vi"] = phase_mono_vi(dev, smi)
+    by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
+    patch = records[0]
+    patch["fisheye_shapes"] = fish_shapes
+    patch["max_abs_err"] = max([patch["max_abs_err"]]
+                               + [r["max_abs_err"] for r in fish_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD,
-                      "mono_vi": N_VI}
+                      "mono_vi": N_VI, "fisheye_stereo": N_FISH}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}

@@ -216,7 +216,7 @@ def test_system_on_the_card_matches_cpu(cuda):
     8 rendered frames, a keyframe every 2 frames (init, fused and host
     tracking, triangulation, fusion, local BA); poses within 1 cm."""
     from tpuslam_torch.engine.config import SlamConfig
-    from tpuslam_torch.engine.system import System
+    from tpuslam_torch.engine.system import Sensor, System
 
     seq = SyntheticSequence(n_frames=8, fps=10, speed=0.5, baseline=0.1)
     cfg = SlamConfig(orb=OrbConfig(n_features=500),
@@ -225,7 +225,7 @@ def test_system_on_the_card_matches_cpu(cuda):
     runs = {}
     for dev in (cuda, torch.device("cpu")):
         slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240), cfg,
-                      bf=seq.fx * seq.baseline, device=dev)
+                      sensor=Sensor.STEREO, bf=seq.fx * seq.baseline, device=dev)
         n_patch, n_pose = patch_cuda.counter.launches, pose_opt_cuda.counter.launches
         for i in range(8):
             slam.tracker.fused_enabled = i != 5          # frame 5: the host path

@@ -124,10 +124,23 @@ def test_project_residuals_matches_tpuslam(rng):
 
 
 def test_kb8_spec_raises():
-    spec = reproj.CamSpec(kind="kb8", k=(0.1, 0.0, 0.0, 0.0))
-    X = torch.ones(4, 3)
-    with pytest.raises(NotImplementedError, match="Fisheye"):
-        reproj.cam_uv_jac(X, torch.zeros(4, dtype=torch.bool), 1.0, 1.0, 0.0, 0.0, 0.0, spec)
+    """A kb8 CamSpec no longer raises: its residuals (mono and stereo rows,
+    the bf/z third row) equal tpuslam's to 1e-10; an unknown kind raises.
+    The rig and f32 cases: tests/test_torch_kb8.py."""
+    spec = reproj.CamSpec(kind="kb8", k=(0.1, 0.02, -0.01, 0.001))
+    rng = np.random.RandomState(0)
+    X = np.stack([rng.randn(40), rng.randn(40), rng.rand(40) * 3 + 0.5], -1)
+    uvr = rng.rand(40, 3) * 300
+    st = rng.rand(40) < 0.5
+    cam = (190.0, 191.0, 256.0, 250.0, 38.0)
+    got = reproj.cam_residual(torch.tensor(X), torch.tensor(uvr), torch.tensor(st), *cam, spec)
+    ref = j_reproj.cam_residual(jnp.asarray(X), jnp.asarray(uvr), jnp.asarray(st), *cam,
+                                j_reproj.CamSpec(kind="kb8", k=spec.k))
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-10, atol=1e-10)
+    with pytest.raises(ValueError, match="omni"):
+        reproj.cam_uv_jac(torch.ones(4, 3), torch.zeros(4, dtype=torch.bool), 1.0, 1.0, 0.0,
+                          0.0, 0.0, reproj.CamSpec(kind="omni"))
 
 
 # --------------------------------------------------------------- pose LM
@@ -170,7 +183,8 @@ def test_pose_optimize_matches_tpuslam(case):
 def test_pose_optimize_best_routes_pinhole_to_the_fused_kernel():
     """Pinhole: the fused route (its plain version on CPU tensors, no
     launch), f64 host inputs cast to f32, padded invalid rows never
-    inliers; against tpuslam's pose_optimize at the Pallas tolerances."""
+    inliers; against tpuslam's pose_optimize at the Pallas tolerances. A
+    kb8 spec goes to the camera-generic solver in the input's dtype."""
     arrays, scalars = _pose_problem(n=700, stereo=True)
     nb = 768
     pad = [np.concatenate([a, np.zeros((nb - 700,) + a.shape[1:], a.dtype)]) for a in arrays[2:]]
@@ -184,9 +198,11 @@ def test_pose_optimize_best_routes_pinhole_to_the_fused_kernel():
     np.testing.assert_allclose(R.numpy(), Rj, atol=2e-4)
     np.testing.assert_allclose(t.numpy(), tj, atol=2e-3)
     assert np.mean(inl.numpy()[:700] == inlj) > 0.97
-    with pytest.raises(NotImplementedError):
-        pose_optimize_best(*[torch.tensor(a) for a in arrays], *scalars,
-                           cam=reproj.CamSpec(kind="kb8"))
+    kb8 = reproj.CamSpec(kind="kb8", k=(0.0, 0.0, 0.0, 0.0))
+    Rk, tk, inlk, _ = pose_optimize_best(*[torch.tensor(a) for a in arrays], *scalars, cam=kb8)
+    Rg, tg, inlg, _ = pose_optimize(*[torch.tensor(a) for a in arrays], *scalars, cam=kb8)
+    assert pose_opt_cuda.counter.launches == before and Rk.dtype == torch.float64
+    assert torch.equal(Rk, Rg) and torch.equal(tk, tg) and torch.equal(inlk, inlg)
 
 
 # ------------------------------------------------------------------- BA

@@ -10,14 +10,16 @@
     ATE < 5 cm, Horn scale within 3 % of 1), and the trajectory savers.
   * bench.py's configuration (async mapping + pipelined tracking): only
     the state after flush() is asserted, not quality during the race.
-  * The sensors and options of later ROADMAP items raise (mono, RGB-D and
-    the vocabulary are ported: tests/test_torch_{mono,rgbd,loop_run}.py).
+  * The options of later ROADMAP items raise (mono, RGB-D, the vocabulary
+    and the fisheye rig are ported: tests/test_torch_{mono,rgbd,loop_run,
+    fisheye}.py); camera2 / Tlr now build a fisheye stereo tracker.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from tpuslam.cameras import KannalaBrandt8 as JKannalaBrandt8
 from tpuslam.cameras import Pinhole as JPinhole
 from tpuslam.engine import System as JSystem
 from tpuslam.engine.config import SlamConfig as JSlamConfig
@@ -25,7 +27,7 @@ from tpuslam.engine.config import TrackingConfig as JTrackingConfig
 from tpuslam.engine.system import Sensor as JSensor
 from tpuslam.eval.ate import ate_rmse
 from tpuslam.ops.orb import OrbConfig as JOrbConfig
-from tpuslam_torch.cameras import Pinhole
+from tpuslam_torch.cameras import KannalaBrandt8, Pinhole
 from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
 from tpuslam_torch.engine.system import Sensor, System
 from tpuslam_torch.engine.tracking import State
@@ -162,8 +164,21 @@ def test_modes_and_resets(seq20):
 def test_unported_parts_raise(what):
     cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
     if what in ("Tlr", "camera2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            System(cam, device="cpu", **{what: object()})
+        # ported: the fisheye rig reaches the tracker as tpuslam's does
+        # (camera2 without Tlr: the identity extrinsic, as there)
+        fish = KannalaBrandt8([95.0, 95.0, 128.0, 128.0, 0.0, 0.0, 0.0, 0.0], 256, 256)
+        Tlr = np.eye(4)
+        Tlr[0, 3] = 0.2
+        kw = {"camera2": fish} if what == "camera2" else {"camera2": fish, "Tlr": Tlr}
+        slam = System(fish, sensor=Sensor.STEREO, bf=19.0, device="cpu", **kw)
+        tr = slam.tracker
+        assert tr.camera2 is fish and slam.camera2 is fish and tr.camspec.kind == "kb8"
+        np.testing.assert_array_equal(tr.R_rl, np.eye(3))
+        np.testing.assert_array_equal(tr.t_rl, -Tlr[:3, 3] if what == "Tlr" else np.zeros(3))
+        jt = JSystem(JKannalaBrandt8(fish.full_params, 256, 256), sensor=JSensor.STEREO, bf=19.0,
+                     **{k: (JKannalaBrandt8(fish.full_params, 256, 256) if k == "camera2" else v)
+                        for k, v in kw.items()}).tracker
+        np.testing.assert_array_equal(tr.t_rl, jt.t_rl)
         return
     slam = System(cam, sensor=Sensor.STEREO, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -186,18 +186,17 @@ for i in (1, 2):
     assert err < 0.05 and int(pose[12]) >= 100, (i, err, pose)
 # the System: stereo init, fused tracking, a keyframe with local mapping
 from tpuslam_torch.engine.config import SlamConfig
-from tpuslam_torch.engine.system import System
+from tpuslam_torch.engine.system import Sensor, System
 slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
               SlamConfig(orb=OrbConfig(n_features=500),
                          tracking=TrackingConfig(min_stereo_init_features=200,
                                                  max_frames_between_kf=1)),
-              bf=seq.fx * seq.baseline, device="cpu")
+              sensor=Sensor.STEREO, bf=seq.fx * seq.baseline, device="cpu")
 for i in range(3):
     slam.track_stereo(seq.frame(i), seq.frame(i, right=True), i / seq.fps)
 assert slam.get_tracking_state().name == "OK" and len(slam.trajectory_tum()) == 3
 assert len(slam.map.valid_kf_ids()) >= 2 and slam.map.map_version >= 1
 # mono with a vocabulary (two-view init, loop closer) and an RGB-D frame
-from tpuslam_torch.engine.system import Sensor
 from tpuslam_torch.place import train_vocabulary
 rs = np.random.RandomState(0)
 vocab = train_vocabulary((rs.rand(300, 256) > 0.5).astype(np.uint8), k=4, L=2, iters=2,

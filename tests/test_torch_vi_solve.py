@@ -10,6 +10,10 @@
     a perturbed start, with a fixed pose): f64 states within 1e-8 relative
     and the cost within 1e-6 relative; one f32 case passing tpuslam's own
     recovery gates, within 3 cm of tpuslam's f32 run.
+  * Both solvers with a Kannala-Brandt (kb8) camera spec, KB8 pixels:
+    pose_inertial_solve with 15 gross outliers and vi_ba_solve from a
+    perturbed start, f64 at the tolerances above, f32 against tpuslam's
+    f64 solve (2e-4 / 2e-3; 3 cm for the BA).
   * vi_matvec and pcg_solve_vi on a random 15-dim reduced system: within
     1e-12 / 1e-10 relative of tpuslam's, and the PCG solution within 1e-5
     of the dense solve (its stopping tolerance).
@@ -22,19 +26,24 @@ import numpy as np
 import pytest
 import torch
 
+from tpuslam.cameras import KannalaBrandt8 as JKB8
+from tpuslam.cameras import kb8 as JK
 from tpuslam.core import lie as JL
 from tpuslam.imu import preintegration as JP
 from tpuslam.solve import inertial_ba as JBA
 from tpuslam.solve import pose_graph as JG
 from tpuslam.solve import pose_inertial as JPI
+from tpuslam.solve import reproj as j_reproj
 from tpuslam.solve import schur_cg as JS
 from tpuslam_torch.imu.preintegration import pre_to
 from tpuslam_torch.solve import inertial_ba as TBA
 from tpuslam_torch.solve import pose_graph as TG
 from tpuslam_torch.solve import pose_inertial as TPI
+from tpuslam_torch.solve import reproj
 from tpuslam_torch.solve import schur_cg as TS
 
 from test_inertial_ba import _make_problem
+from test_kb8_solvers import KB_PARAMS
 from test_pose_graph import _circle_graph
 from test_pose_inertial import CX, CY, FX, FY, _make, _obs, _perturbed
 
@@ -87,20 +96,24 @@ def _pi_inputs(rng, d, k_anchor, k_frame, state2, prior=None, stereo_frac=0.0,
         (calib.Rcb, calib.tcb)
 
 
-def _pi_both(inputs, anchor_fixed, dtype=torch.float64):
+def _pi_both(inputs, anchor_fixed, dtype=torch.float64, jax_kw=None, port_kw=None,
+             port_only=False):
+    """Both packages' pose_inertial_solve on `inputs` (port_only: the port's
+    alone, None for tpuslam's); jax_kw / port_kw: extra keywords of each
+    side's solve (a camera spec)."""
     floats, stereo, valid, pre, edge, rw, prior_args, ext = inputs
     jd = jnp.float64 if dtype == torch.float64 else jnp.float32
-    jo = JPI.pose_inertial_solve(
+    jo = None if port_only else JPI.pose_inertial_solve(
         *[J(x, jd) for x in floats], jnp.asarray(stereo), jnp.asarray(valid),
         {k: J(v, jd) for k, v in pre.items()}, *[J(x, jd) for x in edge], *rw,
         *[J(x, jd) for x in prior_args], anchor_fixed, *[J(x, jd) for x in ext],
-        FX, FY, CX, CY, BF)
+        FX, FY, CX, CY, BF, **(jax_kw or {}))
     to = TPI.pose_inertial_solve(
         *[T(x, dtype) for x in floats], torch.as_tensor(stereo), torch.as_tensor(valid),
         pre_to(pre, "cpu", dtype), *[T(x, dtype) for x in edge], *rw,
         *[T(x, dtype) for x in prior_args], anchor_fixed, *[T(x, dtype) for x in ext],
-        FX, FY, CX, CY, BF)
-    return [np.asarray(x) for x in jo], [x.numpy() for x in to]
+        FX, FY, CX, CY, BF, **(port_kw or {}))
+    return None if jo is None else [np.asarray(x) for x in jo], [x.numpy() for x in to]
 
 
 def _assert_pi_equal(jo, to, tol_state=1e-9, tol_h=1e-7):
@@ -188,7 +201,11 @@ def _ba_start(rng, d, kind):
     return (Rn, pn, vn, bgn, ban, Xn), fixed, 60
 
 
-def _ba_both(d, start, fixed, n_iters, dtype=torch.float64):
+def _ba_both(d, start, fixed, n_iters, dtype=torch.float64, jax_kw=None, port_kw=None,
+             port_only=False):
+    """Both packages' vi_ba_solve on problem d (port_only: the port's
+    alone, None for tpuslam's); jax_kw / port_kw: extra keywords of each
+    side's solve (a camera spec)."""
     K = d["K"]
     jd = jnp.float64 if dtype == torch.float64 else jnp.float32
     pre = {k: np.asarray(v, np.float64) for k, v in d["pre_stack"].items()}
@@ -198,19 +215,20 @@ def _ba_both(d, start, fixed, n_iters, dtype=torch.float64):
     masks = (d["stereo"], d["valid"])
     edges = (d["edges_a"], d["edges_b"])
     pairs = (d["pair_a"], d["pair_b"])
-    jo = JBA.vi_ba_solve(
+    jo = None if port_only else JBA.vi_ba_solve(
         *[J(x, jd) for x in start], *map(jnp.asarray, ints), *[J(x, jd) for x in obs],
         *map(jnp.asarray, masks), *map(jnp.asarray, edges), {k: J(v, jd) for k, v in pre.items()},
         J(info9, jd), J(np.zeros((K, 3)), jd), J(np.zeros((K, 3)), jd), jnp.asarray(fixed),
         *map(jnp.asarray, pairs), d["fx"], d["fy"], d["cx"], d["cy"], 0.0,
-        J(d["rw_info_g"], jd), J(d["rw_info_a"], jd), n_iters=n_iters)
+        J(d["rw_info_g"], jd), J(d["rw_info_a"], jd), n_iters=n_iters, **(jax_kw or {}))
     to = TBA.vi_ba_solve(
         *[T(x, dtype) for x in start], *map(torch.as_tensor, ints), *[T(x, dtype) for x in obs],
         *map(torch.as_tensor, masks), *map(torch.as_tensor, edges), pre_to(pre, "cpu", dtype),
         T(info9, dtype), T(np.zeros((K, 3)), dtype), T(np.zeros((K, 3)), dtype),
         torch.as_tensor(fixed), *map(torch.as_tensor, pairs), d["fx"], d["fy"], d["cx"], d["cy"],
-        0.0, T(d["rw_info_g"], dtype), T(d["rw_info_a"], dtype), n_iters=n_iters)
-    return [np.asarray(x) for x in jo], [x.numpy() for x in to]
+        0.0, T(d["rw_info_g"], dtype), T(d["rw_info_a"], dtype), n_iters=n_iters,
+        **(port_kw or {}))
+    return None if jo is None else [np.asarray(x) for x in jo], [x.numpy() for x in to]
 
 
 @pytest.mark.parametrize("kind", ["truth", "perturbed", "fixed"])
@@ -238,6 +256,93 @@ def test_vi_ba_solve_f32_recovers(rng):
     np.testing.assert_allclose(to[2], d["v"], atol=5e-2)
     assert np.abs(to[3]).max() < 5e-3 and np.abs(to[4]).max() < 5e-2
     np.testing.assert_allclose(to[1], jo[1], atol=3e-2)
+
+
+# --------------------------------------------------- with a KB8 camera
+
+
+def _kb8_obs(uvr, X, Rcw, tcw, fx, fy, cx, cy):
+    """Replace a problem's pinhole pixels by the KB8 pixels of the same
+    points (TUM-VI k's, the problem's intrinsics)."""
+    p = (fx, fy, cx, cy) + tuple(KB_PARAMS[4:])
+    uv = np.asarray(JK.kb8_project(p, jnp.asarray(X @ Rcw.T + tcw)))
+    return np.concatenate([uv, uvr[:, 2:]], 1)
+
+
+def _kb8_spec_of(fx, fy, cx, cy):
+    jcam = JKB8([fx, fy, cx, cy] + KB_PARAMS[4:], 512, 512)
+    spec = j_reproj.make_kb8_spec(jcam)
+    return spec, reproj.CamSpec(spec.kind, spec.k)
+
+
+@pytest.fixture(scope="module")
+def pi_kb8():
+    """tests/test_pose_inertial.py's frame-1 solve with KB8 pixels and 15
+    gross outliers, and tpuslam's f64 solve of it."""
+    rng = np.random.RandomState(0)
+    d = _make(rng)
+    R2, p2, v2 = _perturbed(rng, d, 1)
+    inputs = _pi_inputs(rng, d, 0, 1, (R2, p2, v2, np.zeros(3), np.zeros(3)))
+    floats = list(inputs[0])
+    Rcw, tcw = d["calib"].cam_from_body(d["Rwb"][1], d["p"][1])
+    uvr = _kb8_obs(floats[11], d["X"], Rcw, tcw, FX, FY, CX, CY)
+    bad = rng.choice(np.nonzero(inputs[2])[0], 15, replace=False)
+    uvr[bad, :2] += rng.uniform(30, 80, (15, 2)) * np.sign(rng.randn(15, 2))
+    floats[11] = uvr
+    inputs = (tuple(floats),) + inputs[1:]
+    spec, tspec = _kb8_spec_of(FX, FY, CX, CY)
+    jo, _ = _pi_both(inputs, True, jax_kw=dict(cam=spec), port_kw=dict(cam=tspec))
+    return d, inputs, tspec, jo
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_pose_inertial_kb8_matches_tpuslam(pi_kb8, dt):
+    """f64 at tests/test_torch_vi_solve.py's tolerances; f32 against
+    tpuslam's f64 solve (2e-4 on R, 2e-3 on p, inliers 97 % equal)."""
+    d, inputs, tspec, jo = pi_kb8
+    _, to = _pi_both(inputs, True, dtype=torch.float64 if dt == "f64" else torch.float32,
+                     port_kw=dict(cam=tspec), port_only=True)
+    if dt == "f64":
+        _assert_pi_equal(jo, to)
+    else:
+        assert to[0].dtype == np.float32
+        np.testing.assert_allclose(to[0], jo[0], atol=2e-4)
+        np.testing.assert_allclose(to[1], jo[1], atol=2e-3)
+        assert (to[5] == jo[5]).mean() > 0.97
+    assert to[5].sum() < inputs[2].sum() - 10          # the outliers are out
+    np.testing.assert_allclose(to[1], d["p"][1], atol=5e-3)
+
+
+@pytest.fixture(scope="module")
+def viba_kb8():
+    """tests/test_inertial_ba.py's window with KB8 pixels from a perturbed
+    start, and tpuslam's f64 solve of it."""
+    rng = np.random.RandomState(0)
+    d = _make_problem(rng)
+    Xc_obs = np.einsum("oji,oj->oi", d["Rwb"][d["obs_kf"]],
+                       d["X"][d["obs_pt"]] - d["p"][d["obs_kf"]])
+    d["uvr"] = _kb8_obs(d["uvr"], Xc_obs, np.eye(3), np.zeros(3), d["fx"], d["fy"], d["cx"],
+                        d["cy"])
+    spec, tspec = _kb8_spec_of(d["fx"], d["fy"], d["cx"], d["cy"])
+    start, fixed, n_iters = _ba_start(rng, d, "perturbed")
+    jo, _ = _ba_both(d, start, fixed, n_iters, jax_kw=dict(cam=spec), port_kw=dict(cam=tspec))
+    return d, (start, fixed, n_iters), tspec, jo
+
+
+@pytest.mark.parametrize("dt", ["f64", "f32"])
+def test_vi_ba_kb8_matches_tpuslam(viba_kb8, dt):
+    """f64 states within 1e-8 relative; f32 within 3 cm of tpuslam's f64
+    solve (tests/test_torch_vi_solve.py's f32 bound)."""
+    d, (start, fixed, n_iters), tspec, jo = viba_kb8
+    _, to = _ba_both(d, start, fixed, n_iters, dtype=torch.float64 if dt == "f64" else
+                     torch.float32, port_kw=dict(cam=tspec), port_only=True)
+    if dt == "f64":
+        for name, a, b in zip(("Rwb", "p", "v", "bg", "ba", "X"), to[:6], jo[:6]):
+            close(a, b, 1e-8, name)
+    else:
+        assert to[1].dtype == np.float32
+        np.testing.assert_allclose(to[1], jo[1], atol=3e-2)
+    np.testing.assert_allclose(to[1], d["p"], atol=3e-2)
 
 
 # --------------------------------------------------------------- VI PCG

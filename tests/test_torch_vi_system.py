@@ -9,7 +9,8 @@
     1 cm / 0.2 degrees). Both must initialize the IMU within 2 frames of
     each other, and after it both maps are gravity-aligned and metric,
     their Horn scales within 10 % of each other (a young scale estimate:
-    1.30 and 1.22 on this run).
+    1.30 and 1.22 on this run), and both mappers record the same IMU-init
+    events (the imu_events of System.save_debug_data).
 The port alone against the test's gates: tests/test_torch_vi_e2e.py.
 """
 
@@ -109,3 +110,8 @@ def test_slice_matches_tpuslam_mono_inertial_system(jax_init_draw):
         assert abs(R[2, 2]) > 0.99 and abs(s - 1.0) < 0.4, (R, s)
         scales.append(s)
     assert abs(scales[1] / scales[0] - 1.0) < SCALE_AGREE, scales
+    # the mappers' debug records (System.save_debug_data's imu_events)
+    ev_j, ev_t = js.local_mapper.debug_events, ts.local_mapper.debug_events
+    assert [e["event"] for e in ev_t] == [e["event"] for e in ev_j] and ev_t[0]["event"] == \
+        "imu_init"
+    assert [set(e) for e in ev_t] == [set(e) for e in ev_j]

@@ -77,6 +77,9 @@ class LocalMapper:
         # BA interruption hook (ref: mbAbortBA LocalMapping.cc:103,283); the
         # async mapper points it at its queue's non-empty check
         self.abort_check = None
+        # debug-dump records of the IMU-init and VIBA events (ref:
+        # System::SaveDebugData, System.cc:836-889): event, t, n_kfs, bg, ba
+        self.debug_events: list[dict] = []
         self._devk = None
 
     @property
@@ -132,8 +135,14 @@ class LocalMapper:
 
     # ---------------------------------------------------------------- inertial
     def _record(self, event: str, t_now: float):
-        print_mess(f"[local_mapping] {event} t={t_now:.3f} kfs={len(self.map.temporal_chain())}",
-                   Level.NORMAL)
+        m = self.map
+        chain = m.temporal_chain()
+        last = chain[-1] if chain else -1
+        self.debug_events.append(dict(
+            event=event, t=t_now, n_kfs=len(chain),
+            bg=m.kf_bg[last].tolist() if last >= 0 else None,
+            ba=m.kf_ba[last].tolist() if last >= 0 else None))
+        print_mess(f"[local_mapping] {event} t={t_now:.3f} kfs={len(chain)}", Level.NORMAL)
 
     def _full_inertial_ba(self, prior_g, prior_a):
         full_inertial_ba(self.map, self.camera, self.imu_calib, self.inv_sigma2, prior_g=prior_g,
@@ -291,10 +300,15 @@ class LocalMapper:
         (map_device.tri_candidates), with the epipolar masks computed on
         the device; the per-match two-view triangulation and gates run in
         vectorized numpy. The map lock is held for the snapshot and the
-        insert sections only."""
+        insert sections only. A fisheye (kb8) camera has no common image
+        plane for a pixel F matrix: its epipolar gate is the essential
+        matrix in normalized ray coordinates, thresholds scaled by 1/fx^2
+        (the camera-generic form of KB8 epipolarConstrain,
+        KannalaBrandt8.cpp:202)."""
         m = self.map
         cfg = self.cfg.mapping
         cam = self.camera
+        kb8 = self.camspec.kind == "kb8"
         Fms, free2_l, sig2_l, used = [], [], [], []
         pose_snap = {}
         with hold():
@@ -317,14 +331,18 @@ class LocalMapper:
                 pose_snap[kn] = (R2, t2)
                 f2 = m.kf_feats[kn]
                 free2_l.append((m.kf_mp[kn] < 0) & f2.valid)
-                # fundamental matrix from the relative pose (ref ComputeF12)
+                # essential matrix from the relative pose (ref ComputeF12)
                 R12 = R1 @ R2.T
                 t12 = -R12 @ t2 + t1
                 E12 = np.array([[0, -t12[2], t12[1]],
                                 [t12[2], 0, -t12[0]],
                                 [-t12[1], t12[0], 0]]) @ R12
-                Fms.append((Kinv.T @ E12 @ Kinv).astype(np.float32))
-                sig2_l.append(3.84 * self.sf[f2.octave] ** 2)
+                if kb8:
+                    Fms.append(E12.astype(np.float32))
+                    sig2_l.append(3.84 * self.sf[f2.octave] ** 2 / float(cam.fx) ** 2)
+                else:
+                    Fms.append((Kinv.T @ E12 @ Kinv).astype(np.float32))
+                    sig2_l.append(3.84 * self.sf[f2.octave] ** 2)
                 used.append(kn)
         if not used:
             with hold():
@@ -336,7 +354,7 @@ class LocalMapper:
         # one-to-one run inside the kernel
         with T.stage("tri.kernel"):
             midx, _ = self.devk.tri_match(
-                m, kf, free1, used, np.stack(Fms), np.stack(free2_l), False,
+                m, kf, free1, used, np.stack(Fms), np.stack(free2_l), kb8,
                 np.stack(sig2_l).astype(np.float32))
         r1 = np.nonzero(midx >= 0)[0]
         if len(r1) == 0:

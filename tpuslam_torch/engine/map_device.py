@@ -130,6 +130,12 @@ def tri_candidates(opacked, oang, oxyh, ofree, Fm, gxy, tfree, tsig2, tpacked, t
     = epipolar distance gate from per-neighbour F matrices & free slots;
     dist <= TH_LOW, rotation-histogram consistency, one-to-one.
 
+    gxy / oxyh: the gate coordinates, undistorted pixels for pinhole F
+    matrices or normalized ray coordinates for the essential matrices of a
+    fisheye (kb8) camera; tsig2 [T,N]: the thresholds 3.84 * sigma2, divided
+    by fx^2 in the normalized case (ref KB8 epipolarConstrain,
+    KannalaBrandt8.cpp:202).
+
     -> (midx [N] i32 into the flattened T*N columns or -1, mdist [N] i32)."""
     N = opacked.shape[0]
     T, Nt = gxy.shape[:2]

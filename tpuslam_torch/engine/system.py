@@ -3,12 +3,12 @@
 Mirrors the reference System (include/System.h:85-189): the constructor
 wires the tracker, the local mapper and, with a vocabulary, the loop
 closer (synchronous, or behind parallel/async_mapping.AsyncMapper's
-worker thread), TrackMonocular / TrackStereo / TrackRGBD,
-state queries, localization mode, resets, Shutdown (which also joins a
-background global BA) and the trajectory savers. Tracking, mapping and
-loop closing run on one explicit device; the map is host state. The
-threads issue device work on the default stream, so their work
-serialises there.
+worker thread), TrackMonocular / TrackStereo (a rectified pinhole pair
+or a fisheye rig) / TrackRGBD, state queries, localization mode, resets,
+Shutdown (which also joins a background global BA), the trajectory
+savers and SaveDebugData. Tracking, mapping and loop closing run on one
+explicit device; the map is host state. The threads issue device work on
+the default stream, so their work serialises there.
 
 The sensors and options of later ROADMAP items raise NotImplementedError
 naming the item; nothing falls back silently.
@@ -17,6 +17,7 @@ naming the item; nothing falls back silently.
 from __future__ import annotations
 
 import enum
+import json
 
 import numpy as np
 import torch
@@ -25,6 +26,7 @@ from ..core import lie
 from ..map.store import SlamMap
 from ..parallel.async_mapping import AsyncMapper
 from ..utils import DEFAULT_DEVICE, resolve_device
+from ..utils.timing import GLOBAL_TIMER
 from .config import SlamConfig
 from .local_mapping import LocalMapper
 from .loop_closing import LoopCloser
@@ -41,7 +43,6 @@ class Sensor(enum.Enum):
 
 # the ROADMAP item each unported option belongs to
 _WAITS = {
-    "camera2": "fisheye",
     "checkpoint": "tools",
 }
 
@@ -67,7 +68,7 @@ def _quat_rows(rows):
 
 class System:
     def __init__(self, camera, cfg: SlamConfig | None = None,
-                 sensor: Sensor = Sensor.STEREO, imu_calib=None, vocab=None,
+                 sensor: Sensor = Sensor.MONOCULAR, imu_calib=None, vocab=None,
                  bf: float = 0.0, async_mapping: bool = False, camera2=None, Tlr=None,
                  device=DEFAULT_DEVICE, dtype=torch.float32):
         """imu_calib: an imu.preintegration.ImuCalib, required by the
@@ -78,20 +79,20 @@ class System:
         bf: fx * baseline in pixels (ref Camera.bf) for stereo / RGB-D.
         async_mapping: run local mapping and loop closing on a worker
         thread (the reference's LocalMapping / LoopClosing threads).
+        camera2/Tlr: the right camera of a fisheye (KB8) stereo rig and the
+        left<-right extrinsic 4x4 (ref Camera2.* + Tlr settings,
+        src/Tracking.cc:95-134); they enable the fisheye stereo path.
         device: where extraction, matching, the solvers, the mapping
         kernels and BA run: the card by default, "cpu" where asked (without
         a card the default raises); dtype: the solvers' float
-        type (f32, as on the card). The default sensor is STEREO, as the
-        port's first System was (tpuslam defaults to MONOCULAR)."""
+        type (f32, as on the card). The default sensor is MONOCULAR, as in
+        tpuslam."""
         use_imu = sensor in (Sensor.IMU_MONOCULAR, Sensor.IMU_STEREO)
         if use_imu and imu_calib is None:
             raise ValueError("inertial sensor requires imu_calib")
-        if camera2 is not None:
-            raise _not_ported("camera2")
-        if Tlr is not None:
-            raise _not_ported("Tlr", "camera2")
         self.cfg = cfg or SlamConfig()
         self.camera = camera
+        self.camera2 = camera2
         self.sensor = sensor
         self.device = resolve_device(device)
         self.map = SlamMap(self.cfg.orb.n_features, scale=self.cfg.orb.scale,
@@ -117,7 +118,7 @@ class System:
         self.tracker = Tracker(camera, self.cfg, self.map, mapper_for_tracker,
                                sensor="mono" if mono else "stereo", bf=bf,
                                loop_closer=closer_for_tracker, imu_calib=imu_calib,
-                               device=self.device, dtype=dtype)
+                               camera2=camera2, Tlr=Tlr, device=self.device, dtype=dtype)
 
     # ------------------------------------------------------------------ API
     def _pose(self, frame):
@@ -284,6 +285,24 @@ class System:
             for (t, x, y, z, qx, qy, qz, qw) in self.keyframe_trajectory_tum():
                 fh.write(f"{int(round(t * 1e9))} {x:.9f} {y:.9f} {z:.9f} "
                          f"{qw:.9f} {qx:.9f} {qy:.9f} {qz:.9f}\n")
+
+    def save_debug_data(self, path: str):
+        """Debug dump of the run as JSON (ref: System::SaveDebugData
+        System.cc:836-889): the mapper's IMU-init and VIBA events with their
+        bias estimates, loops closed, map counters, stage timings."""
+        m = self.map
+        data = dict(
+            imu_events=list(self.local_mapper.debug_events),
+            loops_closed=self.loop_closer.n_loops_closed if self.loop_closer else 0,
+            keyframes=int(len(m.valid_kf_ids(all_maps=True))),
+            map_points=int(m.mp_valid[: m.n_mp].sum()),
+            maps=[int(x) for x in m.map_ids()],
+            imu_initialized=bool(m.imu_initialized),
+            tracking_state=self.tracker.state.name,
+            stage_ms=GLOBAL_TIMER.summary(),
+        )
+        with open(path, "w") as fh:
+            json.dump(data, fh, indent=1)
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, path: str):

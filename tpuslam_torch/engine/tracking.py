@@ -1,12 +1,14 @@
 """Tracking engine: the per-frame state machine (port of
-tpuslam/engine/tracking.py, visual mono / stereo / RGB-D).
+tpuslam/engine/tracking.py: mono, stereo, fisheye stereo, RGB-D, and
+visual-inertial).
 
 The reference Tracking (src/Tracking.cc:829 Track() and friends):
   - monocular initialization by two-view reconstruction (:1460, :1550)
     and stereo / RGB-D initialization from depth (:1351)
   - the fused on-device step (track_device.FusedTracker) in the OK state,
     mono or stereo, synchronous or pipelined, with the host path as its
-    fallback; RGB-D frames always take the host path, as in tpuslam
+    fallback; RGB-D and fisheye (KB8) stereo frames always take the host
+    path, as in tpuslam
   - reference-KF / motion-model tracking (:1750, :1879)
   - local-map tracking (:1974) with frustum culling (:2358)
   - keyframe decision (:2089) and creation (:2228), with the loop
@@ -88,11 +90,17 @@ class Frame:
 class Tracker:
     def __init__(self, camera, cfg: SlamConfig, slam_map: SlamMap, local_mapper=None,
                  sensor: str = "stereo", bf: float = 0.0, loop_closer=None,
-                 imu_calib=None, device=DEFAULT_DEVICE, dtype=torch.float32):
+                 imu_calib=None, camera2=None, Tlr=None, device=DEFAULT_DEVICE,
+                 dtype=torch.float32):
         """sensor: "mono", or "stereo" for stereo and RGB-D frames (the
         frame's input decides). imu_calib: an ImuCalib makes the tracker
-        visual-inertial. dtype: the float type of the two-view, initial-BA,
-        PnP and pose-inertial solves (f32 on the card)."""
+        visual-inertial. camera2/Tlr: the right camera of a fisheye (KB8)
+        stereo rig and the left<-right extrinsic 4x4 (ref: Tracking ctor,
+        Camera2.* + Tlr, src/Tracking.cc:95-134): stereo frames then go
+        through the lapping-area matcher and two-ray triangulation instead
+        of the rectified row-banded one. dtype: the float type of the
+        two-view, initial-BA, PnP and pose-inertial solves (f32 on the
+        card)."""
         if sensor not in ("mono", "stereo"):
             raise ValueError(f"sensor {sensor!r}: expected 'mono' or 'stereo'")
         self.camera = camera
@@ -102,6 +110,18 @@ class Tracker:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.frontend = Frontend(camera, cfg.orb, bf=bf, device=self.device)
+        self.camera2 = camera2
+        self.R_rl = self.t_rl = None
+        if camera2 is not None:
+            # Tlr maps right-camera coordinates into the left frame; the
+            # triangulation takes its inverse Trl (right <- left)
+            Tlr = np.asarray(Tlr if Tlr is not None else np.eye(4), np.float64)
+            R_lr, t_lr = Tlr[:3, :3], Tlr[:3, 3]
+            self.R_rl = R_lr.T
+            self.t_rl = -R_lr.T @ t_lr
+        # the solvers see left-camera observations only (right features are
+        # consumed by the depth triangulation), so the left camera's spec
+        # covers every solve
         self.camspec = camera.spec
         self.local_mapper = local_mapper
         self.loop_closer = loop_closer
@@ -334,6 +354,7 @@ class Tracker:
             and self.state == State.OK
             and not self._force_new_map
             and not self.use_imu
+            and self.camera2 is None
             and depth is None
             and self.camspec.kind == "pinhole"
             and self.last_frame is not None
@@ -373,6 +394,7 @@ class Tracker:
             and not self._force_new_map
             and self.use_imu
             and self.map.imu_initialized
+            and self.camera2 is None
             and depth is None
             and self.camspec.kind == "pinhole"
             and self.last_frame is not None
@@ -390,7 +412,10 @@ class Tracker:
         if not ran:
             if frame.feats is None:
                 with T.stage("extract"):
-                    if img_right is not None:
+                    if img_right is not None and self.camera2 is not None:
+                        frame.feats = self.frontend.process_stereo_fisheye(
+                            img, img_right, self.camera2, self.R_rl, self.t_rl)
+                    elif img_right is not None:
                         frame.feats = self.frontend.process_stereo(img, img_right)
                     elif depth is not None:
                         frame.feats = self.frontend.process_rgbd(
@@ -673,6 +698,9 @@ class Tracker:
             z = f.depth[i]
             if z <= 0 or (n >= max_new and z > th):
                 break
+            # back-projection through the camera model: norm_xy is the z = 1
+            # unprojected ray, exact for pinhole and fisheye alike (ref
+            # UnprojectStereoFishEye Frame.cc:1245)
             nx, ny = f.norm_xy[i]
             Xw = Rwc @ np.array([nx * z, ny * z, z]) + Ow
             frame.mp[i] = m.add_point(Xw, kf, int(i))

@@ -1,17 +1,21 @@
 """Synthetic rendered sequences with exact ground truth
-(port of tpuslam/io/synthetic.py, numpy only).
+(port of tpuslam/io/synthetic.py, on the host).
 
 A ray-cast "textured room": the camera flies a smooth trajectory inside a
 box whose five faces carry procedural textures; rendering is exact
-perspective projection with bilinear texture sampling. For the same seed
-and parameters the frames are bitwise equal to the JAX package's.
+projection with bilinear texture sampling, through a pinhole or any
+camera model (a fisheye's rays come from camera.unproject on the pixel
+grid, in f64 on the CPU). For the same seed and parameters the pinhole
+frames are bitwise equal to the JAX package's; fisheye frames agree to
+the rounding of the unprojection.
 
 Ported: the textures, the room, the trajectory with its closed-form
-derivatives, the pinhole renderer with its exact depth output, the
-perfect IMU samples (`imu_between`, bitwise equal to tpuslam's) and
-`SyntheticSequence.frame` / `frame_rgbd` / `timestamps` / `gt_pose_cw`.
-Not ported: the fisheye (camera.unproject) rendering branch and the
-on-disk render cache.
+derivatives, the renderer (pinhole or camera-model pixel rays, one ray
+cast) with the exact depth output, the perfect IMU samples (`imu_between`, bitwise equal to
+tpuslam's) and `SyntheticSequence.frame` / `frame_rgbd` / `timestamps` /
+`gt_pose_cw`, with a camera pair and rig extrinsic for fisheye stereo.
+Not ported: the on-disk render cache (a sequence keeps each camera's
+pixel rays instead, so a frame costs only the ray cast).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 GRAVITY = 9.81
 
@@ -245,15 +250,24 @@ class Trajectory:
         return Rcw, -Rcw @ p
 
 
-def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy, return_depth=False):
-    """Exact pinhole ray-cast of the textured room -> [H,W] f32 image.
+def pixel_rays(height, width, fx, fy, cx, cy, camera=None):
+    """[H,W,3] z = 1 camera-frame rays of the pixel grid: perspective rays
+    from fx..cy, or camera.unproject of the grid (f64, CPU) for any other
+    camera model (e.g. KannalaBrandt8)."""
+    ys, xs = np.mgrid[0:height, 0:width]
+    if camera is not None:
+        uv = torch.as_tensor(np.stack([xs, ys], -1).astype(np.float64).reshape(-1, 2))
+        return camera.unproject(uv).numpy().reshape(height, width, 3)
+    return np.stack([(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, np.float64)], -1)
+
+
+def render(planes, rays_c, Rcw, tcw, return_depth=False):
+    """Exact ray-cast of the textured room along the [H,W,3] camera-frame
+    rays of `pixel_rays` from the pose Tcw -> [H,W] f32 image.
     return_depth: also return the exact per-pixel camera-frame z (the ray
     parameter equals z for z-normalized rays; 0 = no hit), as a perfect
     depth sensor would (the RGB-D path)."""
-    ys, xs = np.mgrid[0:height, 0:width]
-    rays_c = np.stack(
-        [(xs - cx) / fx, (ys - cy) / fy, np.ones_like(xs, np.float64)], -1
-    )
+    height, width = rays_c.shape[:2]
     Rwc = Rcw.T
     origin = -Rwc @ tcw
     rays_w = rays_c @ Rwc.T  # [H,W,3]
@@ -297,17 +311,26 @@ def render(planes, Rcw, tcw, height, width, fx, fy, cx, cy, return_depth=False):
 
 
 class SyntheticSequence:
-    """Stereo pinhole sequence generator with ground-truth poses and IMU."""
+    """Mono / stereo sequence generator with ground-truth poses and IMU."""
 
     def __init__(self, seed=0, height=240, width=376, fx=200.0, fy=200.0,
                  cx=None, cy=None, fps=10.0, n_frames=40, speed=0.5,
-                 baseline=0.1, imu_rate=200.0, kind="forward_arc", Trl=None):
-        """Trl [4x4] right-from-left rig extrinsic (default: a pure
-        x-baseline)."""
+                 baseline=0.1, imu_rate=200.0, kind="forward_arc", camera=None,
+                 camera2=None, Trl=None):
+        """camera/camera2: an optional camera-model pair for non-pinhole
+        (fisheye) rendering, which then sets the image size and
+        intrinsics; Trl [4x4] right-from-left rig extrinsic (default: a
+        pure x-baseline)."""
         rng = np.random.RandomState(seed)
         self.planes = make_room(rng)
         self.traj = Trajectory(kind=kind, speed=speed)
         self.height, self.width = height, width
+        self.camera = camera
+        self.camera2 = camera2
+        if camera is not None:
+            fx, fy = camera.fx, camera.fy
+            cx, cy = camera.cx, camera.cy
+            self.height, self.width = camera.height, camera.width
         self.fx, self.fy = fx, fy
         self.cx = cx if cx is not None else width / 2.0
         self.cy = cy if cy is not None else height / 2.0
@@ -319,6 +342,15 @@ class SyntheticSequence:
             Trl = np.eye(4)
             Trl[:3, 3] = [-baseline, 0.0, 0.0]
         self.Trl = np.asarray(Trl, np.float64)
+        self._rays = {}
+
+    def _rays_of(self, right):
+        """The pixel rays of the left or right camera, computed once."""
+        if right not in self._rays:
+            cam = self.camera2 if right and self.camera2 is not None else self.camera
+            self._rays[right] = pixel_rays(self.height, self.width, self.fx, self.fy, self.cx,
+                                           self.cy, cam)
+        return self._rays[right]
 
     def timestamps(self):
         return np.arange(self.n_frames) / self.fps
@@ -332,15 +364,13 @@ class SyntheticSequence:
             # right camera: Tc2w = Trl * Tcw
             R_rl, t_rl = self.Trl[:3, :3], self.Trl[:3, 3]
             Rcw, tcw = R_rl @ Rcw, R_rl @ tcw + t_rl
-        return render(self.planes, Rcw, tcw, self.height, self.width,
-                      self.fx, self.fy, self.cx, self.cy)
+        return render(self.planes, self._rays_of(right), Rcw, tcw)
 
     def frame_rgbd(self, i):
         """(image, depth) for the RGB-D path; depth is the renderer's exact
         camera-frame z."""
         Rcw, tcw = self.traj.pose_cw(i / self.fps)
-        return render(self.planes, Rcw, tcw, self.height, self.width,
-                      self.fx, self.fy, self.cx, self.cy, return_depth=True)
+        return render(self.planes, self._rays_of(False), Rcw, tcw, return_depth=True)
 
     def imu_between(self, t0, t1):
         """Perfect IMU samples in (t0, t1]: (t, gyro_body [3], acc_body [3]).

@@ -78,6 +78,7 @@ class BAData:
     fixed: torch.Tensor      # [K] bool
     pair_a: torch.Tensor     # [Q] obs indices
     pair_b: torch.Tensor     # [Q]
+    right: torch.Tensor | None = None  # [O] bool: kb8 rig right-camera rows
 
 
 def _inv3x3(A):
@@ -102,7 +103,7 @@ def _inv3x3(A):
 
 def _residuals_weights(d: BAData, fx, fy, cx, cy, bf, robust: bool, cam=PINHOLE):
     r, Jp, Jl, z = project_residuals(d.R[d.obs_kf], d.t[d.obs_kf], d.X[d.obs_pt], d.uvr,
-                                     d.stereo, fx, fy, cx, cy, bf, cam)
+                                     d.stereo, fx, fy, cx, cy, bf, cam, d.right)
     chi2 = (r * r).sum(-1) * d.inv_sigma2
     chi2_th = torch.where(d.stereo, CHI2_STEREO, CHI2_MONO).to(r.dtype)
     w_rob = huber_weight(chi2, chi2_th) if robust else torch.ones_like(chi2)
@@ -196,10 +197,12 @@ def _cost_terms(d: BAData, fx, fy, cx, cy, bf, robust: bool, cam=PINHOLE):
 
 def ba_solve(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed, pair_a, pair_b,
              fx, fy, cx, cy, bf, n_iters: int = 10, robust: bool = True, lam0: float = 1e-4,
-             cam=PINHOLE, use_cg: bool = False, cg_iters: int = 30):
+             cam=PINHOLE, right=None, use_cg: bool = False, cg_iters: int = 30):
     """LM loop with g2o iteration semantics: n_iters counts ACCEPTED steps
     (a rejected trial raises lambda and retries), with a 3x total-trial
-    cap and a relative-gain stall exit. Returns (R, t, X, final_cost)."""
+    cap and a relative-gain stall exit. right [O] bool flags kb8 rig
+    right-camera observations (None: all left). Returns (R, t, X,
+    final_cost)."""
     dtype = X.dtype
     rel_tol = 1e-8
     obs_kf, obs_pt = obs_kf.long(), obs_pt.long()
@@ -207,7 +210,7 @@ def ba_solve(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed, pai
 
     def data(R, t, X):
         return BAData(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed,
-                      pair_a, pair_b)
+                      pair_a, pair_b, right)
 
     cost = _cost_terms(data(R, t, X), fx, fy, cx, cy, bf, robust, cam).sum()
     lam = torch.tensor(lam0, dtype=dtype, device=X.device)
@@ -239,17 +242,17 @@ def ba_solve(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed, pai
 
 
 def ba_chi2(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, fx, fy, cx, cy, bf,
-            cam=PINHOLE):
+            cam=PINHOLE, right=None):
     """Per-observation chi2 + positive-depth flags (outlier pruning between
     BA phases, ref Optimizer.cc:2064-2120)."""
     obs_kf, obs_pt = obs_kf.long(), obs_pt.long()
     r, _, _, z = project_residuals(R[obs_kf], t[obs_kf], X[obs_pt], uvr, stereo,
-                                   fx, fy, cx, cy, bf, cam)
+                                   fx, fy, cx, cy, bf, cam, right)
     return (r * r).sum(-1) * inv_sigma2, z > 0
 
 
 def ba_solve_np(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed,
-                fx, fy, cx, cy, bf, n_iters=10, robust=True, cam=PINHOLE,
+                fx, fy, cx, cy, bf, n_iters=10, robust=True, cam=PINHOLE, right=None,
                 device=DEFAULT_DEVICE, dtype=torch.float32):
     """Numpy-facing BA on `device` in `dtype`. Returns numpy (R, t, X,
     chi2 [O], pos_depth [O]) with chi2 evaluated at the solution."""
@@ -273,9 +276,10 @@ def ba_solve_np(R, t, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fixed,
         return torch.as_tensor(np.asarray(a, bool), device=device)
 
     args = (f(R), f(t), f(X), i(obs_kf), i(obs_pt), f(uvr), f(inv_sigma2), b(stereo))
+    rt = None if right is None else b(right)
     Rf, tf, Xf, _ = ba_solve(*args, b(valid), b(fixed), i(pa), i(pb), fx, fy, cx, cy, bf,
-                             n_iters=n_iters, robust=robust, cam=cam, use_cg=use_cg)
-    chi2, posz = ba_chi2(Rf, tf, Xf, *args[3:], fx, fy, cx, cy, bf, cam=cam)
+                             n_iters=n_iters, robust=robust, cam=cam, right=rt, use_cg=use_cg)
+    chi2, posz = ba_chi2(Rf, tf, Xf, *args[3:], fx, fy, cx, cy, bf, cam=cam, right=rt)
 
     def host(x):
         return x.cpu().numpy()

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..cameras.kb8 import kb8_project
 from ..core.lie import so3_exp
 from ..core.linalg import spd_solve
 
@@ -45,14 +46,13 @@ def horn_sim3(X1, X2, fix_scale: bool = False):
     return s, R, t
 
 
-def _project(X, fx, fy, cx, cy):
+def _project(X, fx, fy, cx, cy, cam=None):
+    """Pixels of camera-frame points: the KB8 model for a kb8 CamSpec, else
+    pinhole."""
+    if cam is not None and cam.kind == "kb8":
+        return kb8_project((fx, fy, cx, cy) + tuple(cam.k), X)
     z = torch.clamp(X[..., 2], min=1e-6)
     return torch.stack([fx * X[..., 0] / z + cx, fy * X[..., 1] / z + cy], -1)
-
-
-def _check_cam(cam):
-    if cam is not None and cam.kind != "pinhole":
-        raise NotImplementedError(f"{cam.kind} Sim3 projection is ROADMAP item 'fisheye'")
 
 
 def sim3_ransac(X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2, fx, fy, cx, cy,
@@ -62,8 +62,8 @@ def sim3_ransac(X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2, fx, fy, cx, cy,
     reprojection (ref Sim3Solver::CheckInliers), then four LO refits on the
     grown inlier set. X1/X2 [N,3] points in camera frames 1/2; uv1/uv2
     [N,2] observed pixels; inv_s2_* [N]; idx [n_hyp, 3] positions among
-    the valid rows. Returns dict(s, R, t (2 <- 1), inliers [N], n_inliers)."""
-    _check_cam(cam)
+    the valid rows; cam: a CamSpec (None: pinhole). Returns dict(s, R,
+    t (2 <- 1), inliers [N], n_inliers)."""
     if idx is None:
         idx = draw_samples(int(valid.sum()), n_hyp, generator)
     order = torch.argsort((~valid).to(torch.int8), stable=True)  # valid rows first
@@ -75,8 +75,8 @@ def sim3_ransac(X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2, fx, fy, cx, cy,
         si = 1.0 / torch.clamp(s, min=1e-12)
         X2in1 = si[..., None, None] * torch.einsum(
             "hij,hnj->hni", R.transpose(-1, -2), X2[None] - t[:, None, :])
-        e2 = ((_project(X1in2, fx, fy, cx, cy) - uv2) ** 2).sum(-1) * inv_s2_2
-        e1 = ((_project(X2in1, fx, fy, cx, cy) - uv1) ** 2).sum(-1) * inv_s2_1
+        e2 = ((_project(X1in2, fx, fy, cx, cy, cam) - uv2) ** 2).sum(-1) * inv_s2_2
+        e1 = ((_project(X2in1, fx, fy, cx, cy, cam) - uv1) ** 2).sum(-1) * inv_s2_1
         return ((e1 < th_chi2) & (e2 < th_chi2) & valid
                 & (X1in2[..., 2] > 0) & (X2in1[..., 2] > 0))
 
@@ -113,7 +113,6 @@ def optimize_sim3(s0, R0, t0, X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2,
     R' = R Exp(phi), t' = t + R rho. Huber-like weights in the first half
     of the iterations, the chi2 gate after. Returns (s, R, t, inliers,
     n_inliers)."""
-    _check_cam(cam)
     dtype, dev = X1.dtype, X1.device
     sq1 = torch.sqrt(inv_s2_1)[:, None]
     sq2 = torch.sqrt(inv_s2_2)[:, None]
@@ -126,8 +125,8 @@ def optimize_sim3(s0, R0, t0, X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2,
         t2 = t + (R @ theta[:, 0:3, None])[..., 0]                   # [1,3]
         X1in2 = (s2[:, None, None] * (X1 @ R2.transpose(-1, -2)) + t2[:, None])[0]
         X2in1 = ((1.0 / s2)[:, None, None] * ((X2 - t2[:, None]) @ R2))[0]
-        r2 = (_project(X1in2, fx, fy, cx, cy) - uv2) * sq2
-        r1 = (_project(X2in1, fx, fy, cx, cy) - uv1) * sq1
+        r2 = (_project(X1in2, fx, fy, cx, cy, cam) - uv2) * sq2
+        r1 = (_project(X2in1, fx, fy, cx, cy, cam) - uv1) * sq1
         return torch.cat([r1, r2], 0), (X1in2[:, 2] > 0) & (X2in1[:, 2] > 0)
 
     s = torch.as_tensor(s0, dtype=dtype, device=dev)
