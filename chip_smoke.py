@@ -76,13 +76,34 @@ Phases, each raising on failure:
      image's 8 levels and corners) are kept, and after the run the kernel
      is held on them against its plain version and the unfold library call
      (bitwise) and timed as in phase 2. One generic KB8 pose solve is timed
-     on its own and its CUDA kernels counted (torch.profiler must see them).
+     on its own and its CUDA kernels counted (torch.profiler must see them);
+  9. the dataset CLI (tpuslam_torch.run.main, as `python -m
+     tpuslam_torch.run` runs it) from files on disk: phase 4's first 40
+     frames (20 fps, seed 0; its renders) written as a stereo + IMU EuRoC
+     tree by scripts/make_synth_euroc_torch.py (PNGs, CSVs, ground truth
+     and a YAML with ORBextractor.nFeatures 1024), and a second YAML with
+     identity LEFT./RIGHT. rectification blocks. A vocabulary (k = 8, L =
+     3) is trained here as in phase 5 and written in the reference's text
+     and binary formats and as npz: the three loaders must give the same
+     tree. Run A, `--sensor stereo --vocab <.txt> --eval --format euroc
+     --kf-output --checkpoint` on the card: OK, one map, an unscaled ATE
+     under 5 cm and a Horn scale within 3 % of 1 (read back from the
+     trajectory file), one trajectory row per tracked frame and one per
+     keyframe, exactly 2 patch-gather launches per frame and pose-LM
+     launches, and the checkpoint loaded into a fresh System equal to the
+     run's map (every array field, mp_obs, covis, kf_feats). Run B, the
+     rectification YAML, `--path D,D --async-mapping --pipelined --format
+     kitti`: two maps, OK, both kernels launched, and the rectifier's
+     identity maps giving frame 0 back on the card within 1e-4 gray levels.
+     The PNG decode time per image is printed apart from the track time.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame), the nvidia-smi line and {"ok": true, "device": {...}}. Needs
 one CUDA card; fails without one.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -130,6 +151,7 @@ FISH_BASELINE = 0.2
 # tests/test_e2e_fisheye.py's 256 px rig; phase 8 doubles fx, fy, cx, cy
 KB_L = [95.0, 95.0, 128.0, 128.0, 0.0034823894, 0.00071503485, -0.0020532361, 0.00020293674]
 KB_R = [94.8, 94.9, 127.6, 128.3, 0.0034003171, 0.0017662782, -0.0026631257, 0.00032995174]
+N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
 
 
 def log(*a):
@@ -1107,6 +1129,220 @@ def phase_fisheye(dev, smi):
     return launches, shapes
 
 
+class recorded_systems:
+    """Keep every System that tpuslam_torch.run.main builds, so the phase
+    can read the run's map after the call."""
+
+    def __enter__(self):
+        from tpuslam_torch import run
+
+        self.systems, self.saved = [], run.System
+        systems, base = self.systems, run.System
+
+        class Recorded(base):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                systems.append(self)
+
+        run.System = Recorded
+        return self.systems
+
+    def __exit__(self, *exc):
+        from tpuslam_torch import run
+
+        run.System = self.saved
+
+
+def same_tree(a, b, what, exact_weights=True):
+    check(a.k == b.k and a.L == b.L and a.node_level == b.node_level, f"{what}: tree shape")
+    check(all(np.array_equal(x, y) for x, y in zip(a.level_descs, b.level_descs)),
+          f"{what}: node descriptors differ")
+    tol = 0.0 if exact_weights else 1e-6 * max(1.0, float(np.abs(b.word_weight).max()))
+    check(a.word_weight.shape == b.word_weight.shape
+          and float(np.abs(a.word_weight - b.word_weight).max()) <= tol, f"{what}: word weights")
+
+
+def phase_cli(dev, smi, images):
+    """python -m tpuslam_torch.run on an EuRoC tree written to disk; returns
+    the launch counts of run A and run B. images: phase 4's first N_CLI
+    rendered stereo pairs, the frames of this phase's sequence."""
+    import importlib.util
+    import shutil
+
+    import torch
+
+    from tpuslam_torch import _build, run
+    from tpuslam_torch.engine.config import OrbConfig
+    from tpuslam_torch.engine.frontend import Frontend
+    from tpuslam_torch.engine.system import System
+    from tpuslam_torch.eval.ate import associate, ate_rmse
+    from tpuslam_torch.io import datasets
+    from tpuslam_torch.io.settings import load_settings
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+    from tpuslam_torch.map import checkpoint
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.place import (load_orbvoc, save_orbvoc_binary, save_orbvoc_text,
+                                     train_vocabulary)
+    from tpuslam_torch.place.store import load_vocabulary, save_vocabulary
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    t_phase = time.perf_counter()
+    root = _build.BUILD_DIR.parent / "cli_smoke"
+    shutil.rmtree(root, ignore_errors=True)
+    tree = root / "euroc"
+    spec = importlib.util.spec_from_file_location(
+        "make_synth_euroc_torch", _build.ROOT.parent / "scripts" / "make_synth_euroc_torch.py")
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    seq = SyntheticSequence(seed=0, n_frames=N_CLI, fps=CLI_FPS, speed=0.5, baseline=BASELINE,
+                            height=H, width=W, fx=FX, fy=FY)
+    check(np.array_equal(u8(seq.frame(N_CLI - 1, right=True)), images[N_CLI - 1][1]),
+          "cli: phase 4's frames are not this sequence's")
+    t0 = time.perf_counter()
+    yaml_path = script.write_euroc(seq, str(tree), n_features=N_FEATURES, images=images)
+    rect_path = root / "rect.yaml"
+    with open(yaml_path) as fh:
+        rect_path.write_text(fh.read() + script.identity_rectification_yaml(seq))
+    log(f"[cli] wrote {N_CLI} stereo frames {W}x{H} (phase 4's renders) + IMU + ground truth "
+        f"as a EuRoC tree with scripts/make_synth_euroc_torch.py in "
+        f"{time.perf_counter() - t0:.1f} s (host)")
+
+    # the host PNG decode, apart from tracking
+    disk = datasets.load_euroc(str(tree), stereo=True, with_imu=True)
+    decode = []
+    for i in range(len(disk)):
+        for read in (disk.frame, disk.frame_right):
+            t0 = time.perf_counter()
+            img = read(i)
+            decode.append((time.perf_counter() - t0) * 1e3)
+    check(len(disk) == N_CLI and img.shape == (H, W) and disk.imu is not None
+          and disk.gt.shape == (N_CLI, 8), "cli: the tree does not load back")
+    log(f"[cli] PNG decode per {W}x{H} image (io/png.py, native unfilter): median "
+        f"{np.median(decode):.3f} ms, p90 {np.percentile(decode, 90):.3f} ms over "
+        f"{len(decode)} images (host)")
+
+    # a vocabulary trained here, in the reference's two formats and as npz
+    cam_cfg = load_settings(yaml_path)
+    fe = Frontend(cam_cfg.camera, OrbConfig(n_features=N_FEATURES), device=dev)
+    t0 = time.perf_counter()
+    descs = []
+    for i in range(0, N_CLI, N_CLI // 4):     # frames 0, 10, 20, 30 as in phase 5
+        f = fe.process(disk.frame(i))
+        descs.append(f.bits[f.valid])
+    vocab = train_vocabulary(np.concatenate(descs), k=8, L=3, iters=5, device=dev)
+    paths = {ext: str(root / f"voc.{ext}") for ext in ("txt", "bin", "npz")}
+    save_orbvoc_text(vocab, paths["txt"])
+    save_orbvoc_binary(vocab, paths["bin"])
+    save_vocabulary(vocab, paths["npz"])
+    from_txt, from_bin = load_orbvoc(paths["txt"]), load_orbvoc(paths["bin"])
+    same_tree(from_txt, vocab, "vocabulary .txt")
+    same_tree(from_bin, vocab, "vocabulary .bin", exact_weights=False)
+    same_tree(load_vocabulary(paths["npz"]), vocab, "vocabulary .npz")
+    q = np.concatenate(descs)[:512]
+    words = [v.transform(q, np.ones(len(q), bool), device=dev)[0]
+             for v in (vocab, from_txt, from_bin)]
+    check(all(np.array_equal(w, words[0]) for w in words), "cli: the loaders quantize differently")
+    log(f"[cli] vocabulary k=8 L=3 ({vocab.n_words} words) trained on "
+        f"{sum(map(len, descs))} descriptors and written as .txt / .bin / .npz in "
+        f"{time.perf_counter() - t0:.1f} s; the three loaders give the same tree")
+
+    # run A: stereo, the text vocabulary, --eval, EuRoC format, keyframes,
+    # checkpoint, on the card (the default device)
+    out = {k: str(root / n) for k, n in (("traj", "a_traj.txt"), ("kf", "a_kf.txt"),
+                                         ("ck", "a_map.npz"), ("kitti", "b_traj.txt"))}
+    argv = ["--dataset", "euroc", "--path", str(tree), "--settings", yaml_path, "--sensor",
+            "stereo", "--vocab", paths["txt"], "--eval", "--format", "euroc", "--output",
+            out["traj"], "--kf-output", out["kf"], "--checkpoint", out["ck"]]
+    counts = {}
+    with recorded_systems() as systems:
+        GLOBAL_TIMER.samples.clear()
+        patch_cuda.counter.launches = 0
+        pose_opt_cuda.counter.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):   # its report is logged below
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["cli"] = {"patch_gather": patch_cuda.counter.launches,
+                         "pose_lm": pose_opt_cuda.counter.launches}
+    slam = systems[0]
+    log(f"[cli A] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[cli A] report {json.dumps(rep)}; run.main wall {wall:.1f} s; card {smi}")
+    stage_table("cli A", GLOBAL_TIMER)
+    traj = np.loadtxt(out["traj"], ndmin=2)          # t_ns x y z qw qx qy qz
+    kfs = np.loadtxt(out["kf"], ndmin=2)
+    i_e, i_g = associate(traj[:, 0] * 1e-9, disk.gt[:, 0])
+    rmse, _ = ate_rmse(traj[i_e, 1:4], disk.gt[i_g, 1:4], with_scale=False)
+    _, scale = ate_rmse(traj[i_e, 1:4], disk.gt[i_g, 1:4], with_scale=True)
+    log(f"[cli A] trajectory file: {len(traj)} rows ({len(i_e)} matched to ground truth), "
+        f"ATE {rmse * 100:.3f} cm, Horn scale {scale:.5f}; keyframe file {len(kfs)} rows; "
+        f"launches {counts['cli']}")
+    check(rep["state"] == "OK" and rep["maps"] == 1 and rep["frames"] == N_CLI,
+          f"cli A: report {rep}")
+    check(rep["ate_rmse"] < 0.05 and rmse < 0.05 and abs(scale - 1.0) < 0.03,
+          f"cli A: ATE {rmse} scale {scale}")
+    check(len(traj) == len(slam.trajectory_tum()) >= N_CLI - 2 and len(i_e) == len(traj)
+          and np.isfinite(traj).all(), "cli A: trajectory file rows")
+    check(len(kfs) == rep["keyframes"] == len(slam.map.valid_kf_ids()) >= 2,
+          "cli A: keyframe file rows")
+    fresh = System(slam.camera, slam.cfg, sensor=slam.sensor, device=dev)
+    fresh.load_checkpoint(out["ck"])
+    m, m2 = slam.map, fresh.map
+    for name in checkpoint._ARRAY_FIELDS + ("scale_factors",):
+        check(np.array_equal(getattr(m2, name), getattr(m, name)), f"cli A: checkpoint {name}")
+    check(m2.mp_obs == m.mp_obs and m2.covis == m.covis, "cli A: checkpoint mp_obs / covis")
+    check(all((a is None) == (b is None) and (a is None or all(
+        np.array_equal(getattr(a, k), getattr(b, k)) for k in ("xy", "und_xy", "norm_xy",
+                                                               "octave", "bits", "valid")))
+        for a, b in zip(m2.kf_feats, m.kf_feats)), "cli A: checkpoint kf_feats")
+    log(f"[cli A] checkpoint {os.path.getsize(out['ck'])} bytes loads into a fresh System equal "
+        f"to the run's map ({m.n_kf} KFs, {m.n_mp} points)")
+    check(counts["cli"]["patch_gather"] == 2 * N_CLI,
+          f"cli A: {counts['cli']['patch_gather']} patch-gather launches, not 2 per frame")
+    check(counts["cli"]["pose_lm"] > 0, "cli A: no pose-LM launch")
+
+    # run B: identity rectification, two sessions, async + pipelined, KITTI
+    argv = ["--dataset", "euroc", "--path", f"{tree},{tree}", "--settings", str(rect_path),
+            "--sensor", "stereo", "--async-mapping", "--pipelined", "--format", "kitti",
+            "--output", out["kitti"]]
+    with recorded_systems() as systems:
+        GLOBAL_TIMER.samples.clear()
+        patch_cuda.counter.launches = 0
+        pose_opt_cuda.counter.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["cli_b"] = {"patch_gather": patch_cuda.counter.launches,
+                           "pose_lm": pose_opt_cuda.counter.launches}
+    slam = systems[0]
+    log(f"[cli B] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[cli B] report {json.dumps(rep)}; run.main wall {wall:.1f} s; launches "
+        f"{counts['cli_b']}; mapper errors {len(slam.async_mapper.errors)}")
+    stage_table("cli B", GLOBAL_TIMER)
+    rows = np.loadtxt(out["kitti"], ndmin=2)
+    rec = load_settings(str(rect_path)).make_rectifier(dev)
+    img_l, img_r = disk.frame(0), disk.frame_right(0)
+    got = rec.rectify(img_l, img_r)
+    err = max(float((g - torch.as_tensor(im, device=dev)).abs().max())
+              for g, im in zip(got, (img_l, img_r)))
+    log(f"[cli B] KITTI file {rows.shape}; identity rectification of frame 0 on "
+        f"{got[0].device}: max |out - in| {err:.3g} gray levels")
+    check(rep["maps"] == 2 and rep["state"] == "OK" and rep["frames"] == 2 * N_CLI,
+          f"cli B: report {rep}")
+    check(not slam.async_mapper.errors, f"cli B: mapper errors {slam.async_mapper.errors}")
+    check(rows.shape == (len(slam.trajectory_tum()), 12) and len(rows) >= 2 * N_CLI - 4
+          and np.isfinite(rows).all(), "cli B: KITTI trajectory file")
+    check(got[0].device.type == "cuda" and err <= 1e-4, f"cli B: identity rectification {err}")
+    check(counts["cli_b"]["patch_gather"] >= 2 * (2 * N_CLI - 2) and counts["cli_b"]["pose_lm"] > 0,
+          f"cli B: launches {counts['cli_b']}")
+    shutil.rmtree(root, ignore_errors=True)
+    log(f"[cli] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def main():
     import torch
 
@@ -1152,18 +1388,21 @@ def main():
     records = phase_kernels(dev, seq)
     by_path = {"fused_step": phase_slice(dev, seq, frames)}
     by_path.update(phase_system(dev, seq, frames, smi))
+    cli_images = frames[:N_CLI]
     del frames
     by_path["mono_loop"] = phase_mono_loop(dev, smi)
     by_path["rgbd"] = phase_rgbd(dev, smi)
     by_path["mono_vi"] = phase_mono_vi(dev, smi)
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
+    by_path.update(phase_cli(dev, smi, cli_images))
     patch = records[0]
     patch["fisheye_shapes"] = fish_shapes
     patch["max_abs_err"] = max([patch["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD,
-                      "mono_vi": N_VI, "fisheye_stereo": N_FISH}
+                      "mono_vi": N_VI, "fisheye_stereo": N_FISH, "cli": N_CLI,
+                      "cli_b": 2 * N_CLI}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}

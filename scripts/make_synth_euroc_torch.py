@@ -1,0 +1,161 @@
+#!/usr/bin/env python
+"""Render a synthetic sequence to disk in the EuRoC ASL layout, without
+JAX or OpenCV (the PyTorch port's counterpart of make_synth_euroc.py).
+
+Produces <out>/mav0/{cam0,cam1}/data.csv + data/<ns>.png, imu0/data.csv
+and state_groundtruth_estimate0/data.csv (GT rows: t_ns, p, q_wxyz, the
+reference's format, evaluation/evaluate_ate_scale.py protocol), plus a
+reference-style YAML: the same files as make_synth_euroc.py, rendered by
+tpuslam_torch.io.synthetic and written by tpuslam_torch.io.png, so the
+port's CLI runs end to end from files on disk:
+
+    python scripts/make_synth_euroc_torch.py <out_dir> [--frames N]
+    python -m tpuslam_torch.run --dataset euroc --path <out_dir> \
+        --settings <out_dir>/synth.yaml --sensor stereo --eval [--device cpu]
+
+`write_euroc(seq, out)` writes a given SyntheticSequence (any size, or
+frames the caller has rendered);
+`identity_rectification_yaml(seq)` gives LEFT./RIGHT. blocks that leave
+its pre-rectified pair unchanged.
+"""
+
+import argparse
+import os
+import sys
+
+import numpy as np
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+from tpuslam_torch.core import lie  # noqa: E402
+from tpuslam_torch.io.png import write_png  # noqa: E402
+from tpuslam_torch.io.synthetic import SyntheticSequence  # noqa: E402
+
+
+def write_euroc(seq, out, n_features=700, images=None):
+    """Write `seq`'s stereo frames, IMU and ground truth under out/mav0 and
+    a reference-style YAML (pre-rectified pinhole pair, ideal IMU) to
+    out/synth.yaml; returns the YAML's path. images: the (left, right)
+    uint8 frames of `seq` where the caller has rendered them already."""
+    mav = os.path.join(out, "mav0")
+    for sub in ("cam0/data", "cam1/data", "imu0",
+                "state_groundtruth_estimate0"):
+        os.makedirs(os.path.join(mav, sub), exist_ok=True)
+
+    cam_rows = []
+    for i in range(seq.n_frames):
+        t_ns = int(round(i / seq.fps * 1e9))
+        name = f"{t_ns}.png"
+        for c, right in (("cam0", False), ("cam1", True)):
+            img = (np.clip(seq.frame(i, right=right), 0, 255).astype(np.uint8)
+                   if images is None else images[i][int(right)])
+            write_png(os.path.join(mav, c, "data", name), img)
+        cam_rows.append((t_ns, name))
+    for c in ("cam0", "cam1"):
+        with open(os.path.join(mav, c, "data.csv"), "w") as fh:
+            fh.write("#timestamp [ns],filename\n")
+            for t_ns, name in cam_rows:
+                fh.write(f"{t_ns},{name}\n")
+
+    # IMU at 200 Hz over the whole span (ref imu0/data.csv columns:
+    # t, w_xyz [rad/s], a_xyz [m/s^2])
+    T = seq.n_frames / seq.fps
+    ts, ws, accs = seq.imu_between(-1e-9, T)
+    with open(os.path.join(mav, "imu0", "data.csv"), "w") as fh:
+        fh.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,"
+                 "a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
+        for t, w, a in zip(ts, ws, accs):
+            fh.write(f"{int(round(t * 1e9))},{w[0]:.9f},{w[1]:.9f},"
+                     f"{w[2]:.9f},{a[0]:.9f},{a[1]:.9f},{a[2]:.9f}\n")
+
+    # GT in the reference format: t_ns, p_xyz, q_wxyz (camera-to-world)
+    with open(os.path.join(mav, "state_groundtruth_estimate0",
+                           "data.csv"), "w") as fh:
+        fh.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
+                 "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n")
+        for i in range(seq.n_frames):
+            t = i / seq.fps
+            Rcw, tcw = seq.gt_pose_cw(t)
+            Rwc = Rcw.T
+            p = -Rwc @ tcw
+            q = lie.rot_to_quat(torch.as_tensor(Rwc)).numpy()  # x,y,z,w
+            fh.write(f"{int(round(t * 1e9))},{p[0]:.9f},{p[1]:.9f},"
+                     f"{p[2]:.9f},{q[3]:.9f},{q[0]:.9f},{q[1]:.9f},"
+                     f"{q[2]:.9f}\n")
+
+    # reference-style YAML (pre-rectified pinhole pair, ideal IMU)
+    yaml_path = os.path.join(out, "synth.yaml")
+    with open(yaml_path, "w") as fh:
+        fh.write(f"""%YAML:1.0
+Camera.type: "PinHole"
+Camera.fx: {seq.fx}
+Camera.fy: {seq.fy}
+Camera.cx: {seq.cx}
+Camera.cy: {seq.cy}
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+Camera.width: {seq.width}
+Camera.height: {seq.height}
+Camera.fps: {seq.fps}
+Camera.bf: {seq.fx * seq.baseline}
+Camera.RGB: 0
+ThDepth: 35.0
+IMU.Frequency: 200
+IMU.NoiseGyro: 1.7e-4
+IMU.NoiseAcc: 2.0e-3
+IMU.GyroWalk: 1.9e-5
+IMU.AccWalk: 3.0e-3
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+""")
+    return yaml_path
+
+
+def identity_rectification_yaml(seq):
+    """LEFT./RIGHT. blocks (K, D = 0, R = I, P = K) for `seq`'s camera:
+    the rectification maps are the pixel grid, so the images pass through."""
+    K = [seq.fx, 0.0, seq.cx, 0.0, seq.fy, seq.cy, 0.0, 0.0, 1.0]
+    P = [seq.fx, 0.0, seq.cx, 0.0, 0.0, seq.fy, seq.cy, 0.0, 0.0, 0.0, 1.0, 0.0]
+
+    def matrix(name, rows, cols, data):
+        return (f"{name}: !!opencv-matrix\n   rows: {rows}\n   cols: {cols}\n   dt: d\n"
+                f"   data: [{', '.join(repr(float(v)) for v in data)}]\n")
+
+    text = ""
+    for side in ("LEFT", "RIGHT"):
+        text += f"{side}.height: {seq.height}\n{side}.width: {seq.width}\n"
+        text += matrix(f"{side}.D", 1, 5, [0.0] * 5)
+        text += matrix(f"{side}.K", 3, 3, K)
+        text += matrix(f"{side}.R", 3, 3, np.eye(3).ravel())
+        text += matrix(f"{side}.P", 3, 4, P)
+    return text
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("out")
+    ap.add_argument("--frames", type=int, default=40)
+    ap.add_argument("--fps", type=float, default=10.0)
+    ap.add_argument("--baseline", type=float, default=0.1)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kind", default="vi_excite")
+    args = ap.parse_args(argv)
+
+    seq = SyntheticSequence(seed=args.seed, n_frames=args.frames,
+                            fps=args.fps, speed=0.5,
+                            baseline=args.baseline, kind=args.kind)
+    yaml_path = write_euroc(seq, args.out)
+    print(f"wrote {args.out}: {seq.n_frames} stereo frames + IMU + GT")
+    print(f"run: python -m tpuslam_torch.run --dataset euroc --path {args.out} "
+          f"--settings {yaml_path} --sensor stereo --eval")
+
+
+if __name__ == "__main__":
+    main()

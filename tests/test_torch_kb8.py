@@ -6,7 +6,7 @@ cases compare like with like (the suite runs JAX with x64); every part
 also gets an f32 case.
   * The camera: kb8_project / kb8_jac / kb8_unproject within 1e-9 (f64),
     f32 within 1e-3 px, 1e-5 relative on the Jacobian, 1e-6 on rays; the
-    f32 rounding of the parameters, the spec and make_camera as tpuslam's.
+    f32 rounding of the parameters and the spec as tpuslam's.
   * cam_uv_jac / cam_residual of a kb8 rig: left rows, right-camera rows
     through Trl (is_right) and the bf/z row of stereo rows; 1e-9 (f64),
     1e-5 relative (f32).
@@ -36,7 +36,6 @@ import torch
 
 from tpuslam.cameras import KannalaBrandt8 as JKB8
 from tpuslam.cameras import kb8 as JK
-from tpuslam.cameras import make_camera as j_make_camera
 from tpuslam.engine import local_mapping as j_lm
 from tpuslam.engine.config import SlamConfig as JSlamConfig
 from tpuslam.engine.map_device import make_tri_kernel
@@ -48,7 +47,7 @@ from tpuslam.solve import ba as j_ba
 from tpuslam.solve import reproj as j_reproj
 from tpuslam.solve import sim3 as JS
 from tpuslam.solve.pose_opt import pose_optimize as j_pose_optimize
-from tpuslam_torch.cameras import KannalaBrandt8, Pinhole, make_camera
+from tpuslam_torch.cameras import KannalaBrandt8
 from tpuslam_torch.cameras import kb8 as K
 from tpuslam_torch.engine.config import SlamConfig
 from tpuslam_torch.engine.local_mapping import LocalMapper
@@ -129,13 +128,6 @@ def test_kb8_camera_matches_tpuslam(rng, dt):
         np.testing.assert_allclose(uv.numpy(), juv, atol=1e-3, rtol=0)
         np.testing.assert_allclose(J.numpy(), jJ, atol=1e-5 * np.abs(jJ).max(), rtol=0)
         np.testing.assert_allclose(rays.numpy(), jrays, atol=1e-6, rtol=0)
-    for kind, cls in (("pinhole", Pinhole), ("KannalaBrandt8", KannalaBrandt8),
-                      ("fisheye", KannalaBrandt8)):
-        c = make_camera(kind, KB_PARAMS[: 4 if cls is Pinhole else 8], W, H)
-        assert isinstance(c, cls)
-        assert c.kind == j_make_camera(kind, KB_PARAMS[: 4 if cls is Pinhole else 8], W, H).kind
-    with pytest.raises(ValueError):
-        make_camera("omni", KB_PARAMS, W, H)
 
 
 # ------------------------------------------------------------- residuals

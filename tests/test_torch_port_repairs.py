@@ -1,7 +1,9 @@
 """The port stands alone and runs on the card by default.
 
-  * No module of tpuslam_torch, and nothing in chip_smoke.py, imports
-    tpuslam or jax (a subprocess with both blocked imports them all).
+  * No module of tpuslam_torch, and nothing in chip_smoke.py or
+    scripts/make_synth_euroc_torch.py, imports tpuslam or jax, nor what the
+    card host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of
+    them blocked imports them all).
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
@@ -30,22 +32,30 @@ from tpuslam_torch.utils import pad
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
+BLOCKED = ("tpuslam", "jax", "cv2", "yaml", "matplotlib", "PIL")
 ISOLATED = r"""
-import importlib, pkgutil, sys
-sys.modules["tpuslam"] = None
-sys.modules["jax"] = None
+import importlib, importlib.util, pkgutil, sys
+BLOCKED = %r
+for name in BLOCKED:
+    sys.modules[name] = None
 import tpuslam_torch
 names = [m.name for m in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_torch.")]
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+spec = importlib.util.spec_from_file_location("synth", "scripts/make_synth_euroc_torch.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = {k for k, v in sys.modules.items() if v is not None}
-assert not {k for k in loaded if k.split(".")[0] in ("tpuslam", "jax")}, loaded
+assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
+assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
+        "tpuslam_torch.io.rectify", "tpuslam_torch.io.png", "tpuslam_torch.place.orbvoc",
+        "tpuslam_torch.place.store", "tpuslam_torch.map.checkpoint"} <= set(names)
 print("ISOLATED_OK", len(names))
-"""
+""" % (BLOCKED,)
 
 
 def test_port_imports_nothing_of_tpuslam_or_jax():
+    """Nor cv2, yaml, matplotlib or PIL (see BLOCKED)."""
     res = subprocess.run([sys.executable, "-c", ISOLATED], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr[-3000:]
@@ -116,10 +126,33 @@ def _entry(name):
         if name == "full_inertial_ba":
             return fn(SlamMap(64), _cam(), ImuCalib(), np.ones(8))
         return fn(SlamMap(64), _cam(), ImuCalib(), np.ones(8), [], [])
+    if name == "run.main":
+        return _run_main()
     if name == "match_padded":
         return match_padded(np.zeros((0, 32), np.uint8), np.zeros((3, 32), np.uint8),
                             np.zeros((0, 3), bool))
     raise KeyError(name)
+
+
+def _run_main():
+    """The CLI with its default device on a one-frame EuRoC tree."""
+    import tempfile
+
+    from tpuslam_torch import run
+    from tpuslam_torch.io.png import write_png
+
+    root = tempfile.mkdtemp()
+    for cam in ("cam0", "cam1"):
+        os.makedirs(os.path.join(root, "mav0", cam, "data"))
+        write_png(os.path.join(root, "mav0", cam, "data", "0.png"), np.zeros((240, 376), np.uint8))
+        with open(os.path.join(root, "mav0", cam, "data.csv"), "w") as fh:
+            fh.write("#timestamp [ns],filename\n0,0.png\n")
+    with open(os.path.join(root, "s.yaml"), "w") as fh:
+        fh.write("%YAML:1.0\nCamera.fx: 200.0\nCamera.fy: 200.0\nCamera.cx: 188.0\n"
+                 "Camera.cy: 120.0\nCamera.width: 376\nCamera.height: 240\nCamera.bf: 20.0\n")
+    return run.main(["--dataset", "euroc", "--path", root, "--settings",
+                     os.path.join(root, "s.yaml"), "--sensor", "stereo",
+                     "--output", os.path.join(root, "t.txt")])
 
 
 @pytest.mark.parametrize("name", ["System", "Tracker", "LocalMapper", "LoopCloser", "Frontend",
@@ -127,7 +160,7 @@ def _entry(name):
                                   "BinaryVocabulary.transform", "window_ba", "ba_solve_np",
                                   "optimize_essential_graph", "match_padded",
                                   "preintegrate_window", "run_imu_init", "window_inertial_ba",
-                                  "full_inertial_ba", "local_inertial_ba"])
+                                  "full_inertial_ba", "local_inertial_ba", "run.main"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         obj = _entry(name)

@@ -10,9 +10,10 @@
     ATE < 5 cm, Horn scale within 3 % of 1), and the trajectory savers.
   * bench.py's configuration (async mapping + pipelined tracking): only
     the state after flush() is asserted, not quality during the race.
-  * The options of later ROADMAP items raise (mono, RGB-D, the vocabulary
-    and the fisheye rig are ported: tests/test_torch_{mono,rgbd,loop_run,
-    fisheye}.py); camera2 / Tlr now build a fisheye stereo tracker.
+  * The parts that once raised as not ported now run (mono, RGB-D, the
+    vocabulary and the fisheye rig: tests/test_torch_{mono,rgbd,loop_run,
+    fisheye}.py): camera2 / Tlr build a fisheye stereo tracker, and the
+    map checkpoint writes tpuslam's npz and loads into a fresh System.
 """
 
 import numpy as np
@@ -161,7 +162,7 @@ def test_modes_and_resets(seq20):
 
 
 @pytest.mark.parametrize("what", ["Tlr", "camera2", "checkpoint", "load_checkpoint"])
-def test_unported_parts_raise(what):
+def test_unported_parts_raise(what, tmp_path):
     cam = Pinhole([200.0, 200.0, 188.0, 120.0], 376, 240)
     if what in ("Tlr", "camera2"):
         # ported: the fisheye rig reaches the tracker as tpuslam's does
@@ -180,12 +181,38 @@ def test_unported_parts_raise(what):
                         for k, v in kw.items()}).tracker
         np.testing.assert_array_equal(tr.t_rl, jt.t_rl)
         return
-    slam = System(cam, sensor=Sensor.STEREO, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        if what == "checkpoint":
-            slam.save_checkpoint("x")
-        else:
-            slam.load_checkpoint("x")
+    # ported: save_checkpoint writes tpuslam's npz (keys and dtypes);
+    # load_checkpoint gives a fresh System the saved map
+    from tpuslam.map.store import FrameFeatures as JFrameFeatures
+
+    from tpuslam_torch.map.store import FrameFeatures
+
+    systems = (System(cam, sensor=Sensor.STEREO, device="cpu"),
+               JSystem(JPinhole(cam.params, 376, 240), sensor=JSensor.STEREO))
+    for slam, ff in zip(systems, (FrameFeatures, JFrameFeatures)):
+        rng = np.random.RandomState(0)
+        m = slam.map
+        f = ff(xy=rng.rand(700, 2), und_xy=rng.rand(700, 2), norm_xy=rng.rand(700, 2),
+               octave=np.zeros(700, np.int32), angle=rng.rand(700), response=rng.rand(700),
+               bits=np.zeros((700, 256), np.uint8), packed=np.zeros((700, 8), np.uint32),
+               valid=np.ones(700, bool))
+        k0 = m.add_keyframe(np.eye(3), np.zeros(3), f, 0.0, 0)
+        k1 = m.add_keyframe(np.eye(3), np.array([0.1, 0.0, 0.0]), f, 0.5, 5)
+        for s in range(20):
+            m.add_observation(m.add_point(rng.rand(3) + [0.0, 0.0, 3.0], k0, s), k1, s)
+        m.update_connections(k1)
+        slam.save_checkpoint(tmp_path / f"{type(f).__module__.split('.')[0]}.npz")
+    port, ref = (np.load(tmp_path / f"{p}.npz") for p in ("tpuslam_torch", "tpuslam"))
+    assert sorted(port.files) == sorted(ref.files)
+    assert all(port[k].dtype == ref[k].dtype for k in ref.files)
+    if what == "load_checkpoint":
+        fresh = System(cam, sensor=Sensor.STEREO, device="cpu")
+        fresh.load_checkpoint(tmp_path / "tpuslam_torch.npz")
+        m, m2 = systems[0].map, fresh.map
+        assert (m2.n_kf, m2.n_mp) == (2, 20) and m2.mp_obs == m.mp_obs and m2.covis == m.covis
+        assert np.array_equal(m2.kf_t, m.kf_t) and np.array_equal(m2.kf_mp, m.kf_mp)
+        assert np.array_equal(m2.kf_feats[1].xy, m.kf_feats[1].xy)
+        assert fresh.keyframe_trajectory_tum() == systems[0].keyframe_trajectory_tum()
 
 
 @pytest.mark.parametrize("what", ["IMU_MONOCULAR", "imu_calib", "IMU_STEREO", "imu"])

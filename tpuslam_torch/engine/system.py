@@ -6,12 +6,10 @@ closer (synchronous, or behind parallel/async_mapping.AsyncMapper's
 worker thread), TrackMonocular / TrackStereo (a rectified pinhole pair
 or a fisheye rig) / TrackRGBD, state queries, localization mode, resets,
 Shutdown (which also joins a background global BA), the trajectory
-savers and SaveDebugData. Tracking, mapping and loop closing run on one
-explicit device; the map is host state. The threads issue device work on
-the default stream, so their work serialises there.
-
-The sensors and options of later ROADMAP items raise NotImplementedError
-naming the item; nothing falls back silently.
+savers, SaveDebugData and the map checkpoint. Tracking, mapping and
+loop closing run on one explicit device; the map is host state. The
+threads issue device work on the default stream, so their work serialises
+there.
 """
 
 from __future__ import annotations
@@ -23,6 +21,7 @@ import numpy as np
 import torch
 
 from ..core import lie
+from ..map.checkpoint import load_map, save_map
 from ..map.store import SlamMap
 from ..parallel.async_mapping import AsyncMapper
 from ..utils import DEFAULT_DEVICE, resolve_device
@@ -39,17 +38,6 @@ class Sensor(enum.Enum):
     RGBD = 2
     IMU_MONOCULAR = 3
     IMU_STEREO = 4
-
-
-# the ROADMAP item each unported option belongs to
-_WAITS = {
-    "checkpoint": "tools",
-}
-
-
-def _not_ported(what, key=None):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP item '{_WAITS[key if key is not None else what]}')")
 
 
 def _quat_rows(rows):
@@ -306,7 +294,9 @@ class System:
 
     # ---------------------------------------------------------- checkpointing
     def save_checkpoint(self, path: str):
-        raise _not_ported("save_checkpoint", "checkpoint")
+        """The map (every keyframe, point, observation and the covisibility
+        graph) as one npz of host arrays (map/checkpoint.py)."""
+        save_map(self.map, path)
 
     def load_checkpoint(self, path: str):
-        raise _not_ported("load_checkpoint", "checkpoint")
+        load_map(self.map, path)

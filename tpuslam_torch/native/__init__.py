@@ -1,5 +1,6 @@
 """Native map-runtime bindings, ctypes over mapcore.cpp (port of
-tpuslam/native, with its own copy of the C++ source).
+tpuslam/native, with its own copy of the C++ source), and the PNG row
+unfilter that io/png.py's reader runs.
 
 The library is compiled with g++ at first use into build/tpuslam_torch/
 (rebuilt when the source is newer), written under a temporary name and
@@ -87,12 +88,35 @@ def load():
                                p_i32, p_i32, i32]
     lib.inv_score.restype = ctypes.c_float
     lib.inv_score.argtypes = [ctypes.c_void_p, i32, p_i32, p_f32, i32]
+    p_u8 = ctypes.POINTER(ctypes.c_uint8)
+    lib.png_unfilter.restype = i32
+    lib.png_unfilter.argtypes = [p_u8, p_u8, i32, ctypes.c_int64, i32]
     _lib = lib
     return lib
 
 
 def available() -> bool:
     return load() is not None
+
+
+def png_unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Reconstruct PNG scanlines: `raw` is the inflated image data (each
+    row a filter-type byte and `stride` bytes). Returns [height, stride]
+    u8. Raises RuntimeError where the core cannot be built and ValueError
+    on an unknown filter type."""
+    lib = load()
+    if lib is None:
+        raise RuntimeError("native mapcore unavailable")
+    src = np.frombuffer(raw, np.uint8)
+    if height < 0 or stride < 0 or bpp < 1 or src.size != height * (stride + 1):
+        raise ValueError(f"{src.size} bytes are not {height} rows of 1 + {stride} bytes")
+    dst = np.empty((height, stride), np.uint8)
+    p_u8 = ctypes.POINTER(ctypes.c_uint8)
+    rc = lib.png_unfilter(src.ctypes.data_as(p_u8), dst.ctypes.data_as(p_u8), height, stride,
+                          bpp)
+    if rc < 0:
+        raise ValueError(f"PNG row {-rc - 1}: unknown filter type {src[(-rc - 1) * (stride + 1)]}")
+    return dst
 
 
 class NativeObsIndex:

@@ -1,4 +1,5 @@
-// Native map-runtime core: observation index + covisibility counting.
+// Native map-runtime core: observation index + covisibility counting, and
+// the PNG row unfilter of the dataset reader (io/png.py).
 //
 // The reference's map bookkeeping is C++ (KeyFrame::AddMapPoint /
 // UpdateConnections src/KeyFrame.cc:388, MapPoint::AddObservation /
@@ -289,6 +290,46 @@ float inv_score(void* h, int32_t kf, const int32_t* qwords, const float* qw,
     }
   }
   return 0.5f * s;
+}
+
+// PNG row unfilter (PNG spec section 9): `src` holds `height` rows of one
+// filter-type byte and `stride` filtered bytes; `dst` gets the
+// reconstructed [height, stride] bytes. `bpp` is bytes per complete pixel
+// (the left neighbour's distance). Average and Paeth depend on the
+// reconstructed left byte, so a row is one sequential pass. Returns 0, or
+// -(row + 1) for a row with an unknown filter type.
+int32_t png_unfilter(const uint8_t* src, uint8_t* dst, int32_t height,
+                     int64_t stride, int32_t bpp) {
+  for (int32_t r = 0; r < height; r++) {
+    const uint8_t* in = src + (int64_t)r * (stride + 1);
+    const uint8_t ft = in[0];
+    in += 1;
+    uint8_t* out = dst + (int64_t)r * stride;
+    const uint8_t* up = r > 0 ? out - stride : nullptr;
+    for (int64_t i = 0; i < stride; i++) {
+      const int a = i >= bpp ? out[i - bpp] : 0;
+      const int b = up ? up[i] : 0;
+      const int c = (up && i >= bpp) ? up[i - bpp] : 0;
+      int pred;
+      switch (ft) {
+        case 0: pred = 0; break;
+        case 1: pred = a; break;
+        case 2: pred = b; break;
+        case 3: pred = (a + b) >> 1; break;
+        case 4: {
+          const int p = a + b - c;
+          const int pa = p > a ? p - a : a - p;
+          const int pb = p > b ? p - b : b - p;
+          const int pc = p > c ? p - c : c - p;
+          pred = (pa <= pb && pa <= pc) ? a : (pb <= pc ? b : c);
+          break;
+        }
+        default: return -(r + 1);
+      }
+      out[i] = (uint8_t)(in[i] + pred);
+    }
+  }
+  return 0;
 }
 
 }  // extern "C"

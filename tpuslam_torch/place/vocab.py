@@ -72,6 +72,10 @@ class BinaryVocabulary:
     def n_words(self):
         return len(self.word_weight)
 
+    def word_of(self, pos: int) -> int:
+        """Word id of bottom-level positional slot `pos`."""
+        return int(self.leaf_word[pos]) if self.leaf_word is not None else pos
+
     def _levels(self, device):
         key = str(device)
         if key not in self._dev:
