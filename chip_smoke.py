@@ -96,10 +96,28 @@ Phases, each raising on failure:
      kitti`: two maps, OK, both kernels launched, and the rectifier's
      identity maps giving frame 0 back on the card within 1e-4 gray levels.
      The PNG decode time per image is printed apart from the track time.
+ 10. distribution (tpuslam_torch/parallel/dist_ba.py; bench_dist_torch.py's
+     problem: K = 30 poses, P = 3000 points, O = 15,360 observations, f32):
+     (a) dist_ba_solve on a one-rank NCCL group, held against
+     solve/ba.ba_solve_np on the same card (poses within 1e-3, the cost
+     within a factor 2), and the LM trial step timed (iters/s); (b) the
+     same over 4 gloo ranks that share the card (CUDA tensors; gloo stages
+     them through the host): every rank's state bitwise equal, R and t
+     within 1e-4 and X within 1 cm of (a); (c) over those ranks, the
+     engine's GBA dry run (bench_dist_torch.dryrun_closer: LoopCloser.
+     _snapshot_gba -> _solve_gba -> _apply_gba, 3 distributed solves) must
+     more than halve the cost and land on the one-rank route (the cost
+     within 1e-3, R within 1e-4, t within 1 cm: the scale gauge is flat),
+     and a window inertial BA with DIST_VIBA_MIN_OBS = 0
+     (bench_dist_torch.vi_window_ba) within 5e-3 of the one-rank route;
+     (d) phase 5's mono loop (its frames) as rank 0 of a 2-rank gloo group
+     with LoopConfig(dist_gba_min_obs=0, background_gba=False), rank 1
+     serving: phase 5's gates, and its GBA on the distributed route. Each
+     group has a timeout, and a rank that fails fails the phase.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
-per frame), the nvidia-smi line and {"ok": true, "device": {...}}. Needs
-one CUDA card; fails without one.
+per frame, phase 10's mono loop as mono_loop_dist), the nvidia-smi line
+and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
 import contextlib
@@ -152,6 +170,8 @@ FISH_BASELINE = 0.2
 KB_L = [95.0, 95.0, 128.0, 128.0, 0.0034823894, 0.00071503485, -0.0020532361, 0.00020293674]
 KB_R = [94.8, 94.9, 127.6, 128.3, 0.0034003171, 0.0017662782, -0.0026631257, 0.00032995174]
 N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
+N_DIST_RANKS = 4       # phase 10 (b, c): gloo ranks sharing the card
+DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's run (s)
 
 
 def log(*a):
@@ -682,9 +702,28 @@ def gt_centers(seq, traj):
     return np.array([-seq.gt_pose_cw(r[0])[0].T @ seq.gt_pose_cw(r[0])[1] for r in traj])
 
 
-def phase_mono_loop(dev, smi):
+def loop_sequence():
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+
+    return SyntheticSequence(n_frames=N_LOOP, fps=8, speed=1.0, kind="loop", height=H, width=W,
+                             fx=FX, fy=FY)
+
+
+def render_loop():
+    """The N_LOOP frames of loop_sequence() (phases 5 and 10)."""
+    seq = loop_sequence()
+    t0 = time.perf_counter()
+    frames = [u8(seq.frame(i)) for i in range(N_LOOP)]
+    log(f"[mono_loop] rendered {N_LOOP} frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host)")
+    return frames
+
+
+def phase_mono_loop(dev, smi, frames, dist=False):
     """System.track_monocular with a vocabulary over the loop sequence of
-    tests/test_e2e_loop.py, at full width; returns the launch counts."""
+    tests/test_e2e_loop.py (`frames`, render_loop's), at full width;
+    returns the launch counts. dist: the run is rank 0 of a process group
+    (phase 10 d) and every GBA is the distributed solve, run synchronously
+    (dist_gba_min_obs = 0, background_gba = False): it must take that route."""
     import torch
 
     from tpuslam_torch.cameras import Pinhole
@@ -694,27 +733,25 @@ def phase_mono_loop(dev, smi):
     from tpuslam_torch.engine.tracking import Frame, State
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.eval.ate import horn_align
-    from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.parallel import dist_ba
     from tpuslam_torch.place import train_vocabulary
     from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
-    seq = SyntheticSequence(n_frames=N_LOOP, fps=8, speed=1.0, kind="loop", height=H, width=W,
-                            fx=FX, fy=FY)
-    t0 = time.perf_counter()
-    frames = [u8(seq.frame(i)) for i in range(N_LOOP)]
-    log(f"[mono_loop] rendered {N_LOOP} frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host)")
+    tag = "mono_loop_dist" if dist else "mono_loop"
+    seq = loop_sequence()
     cam = Pinhole([FX, FY, seq.cx, seq.cy], W, H)
     # tests/test_e2e_loop.py's configuration, its pixel radii (the
     # motion-model radius and the two-view init window) scaled by the
     # width ratio
+    loop_kw = dict(dist_gba_min_obs=0, background_gba=False) if dist else {}
     cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
                      tracking=TrackingConfig(max_frames_between_kf=4, min_matches_init=60,
                                              motion_model_radius=25.0 * W / 376.0,
                                              init_window=100.0 * W / 376.0,
                                              time_recently_lost=2.0),
-                     loop=LoopConfig(min_proj_matches=35, min_bow_matches=15))
+                     loop=LoopConfig(min_proj_matches=35, min_bow_matches=15, **loop_kw))
     fe = Frontend(cam, cfg.orb, device=dev)
     t0 = time.perf_counter()
     descs = []
@@ -722,10 +759,11 @@ def phase_mono_loop(dev, smi):
         f = fe.process(frames[i])
         descs.append(f.bits[f.valid])
     vocab = train_vocabulary(np.concatenate(descs), k=8, L=3, iters=5, device=dev)
-    log(f"[mono_loop] vocabulary k=8 L=3 ({vocab.n_words} words) trained on "
+    log(f"[{tag}] vocabulary k=8 L=3 ({vocab.n_words} words) trained on "
         f"{sum(map(len, descs))} descriptors in {time.perf_counter() - t0:.1f} s")
     slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab, device=dev)
     GLOBAL_TIMER.samples.clear()
+    dist_ba.counter.__init__()
     patch_cuda.counter.launches = 0
     pose_opt_cuda.counter.launches = 0
     wall = []
@@ -745,27 +783,29 @@ def phase_mono_loop(dev, smi):
     rmse, _ = ate(est, gt_centers(seq, traj), True)
     steady = np.array(wall[WARMUP:])
     lc = slam.loop_closer
-    log(f"[mono_loop] state {slam.get_tracking_state().name}, {len(m.valid_kf_ids())} KFs, "
+    log(f"[{tag}] state {slam.get_tracking_state().name}, {len(m.valid_kf_ids())} KFs, "
         f"{int(m.mp_valid[: m.n_mp].sum())} map points, loops closed {lc.n_loops_closed}, maps "
         f"{list(m.map_ids())}, {len(traj)} trajectory rows, scaled ATE {rmse:.5f} (limit "
         f"{0.05 * CIRCUMFERENCE:.5f})")
-    log(f"[mono_loop] track_monocular wall ms over frames {WARMUP}..{N_LOOP - 1}: median "
+    log(f"[{tag}] track_monocular wall ms over frames {WARMUP}..{N_LOOP - 1}: median "
         f"{np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max {steady.max():.3f}; "
         f"card {smi}")
-    stage_table("mono_loop", GLOBAL_TIMER)
+    stage_table(tag, GLOBAL_TIMER)
     slow = int(np.argmax(wall))
-    log(f"[mono_loop] slowest frame {slow}: {wall[slow]:.1f} ms")
-    log(f"[mono_loop] launches {launches}; fused dispatches {n_fused}; pose LM on the host path "
+    log(f"[{tag}] slowest frame {slow}: {wall[slow]:.1f} ms")
+    log(f"[{tag}] launches {launches}; fused dispatches {n_fused}; pose LM on the host path "
         f"{launches['pose_lm'] - 4 * n_fused}")
-    check(slam.get_tracking_state() == State.OK, "mono_loop: final state not OK")
-    check(lc.n_loops_closed >= 1, "mono_loop: no loop closed")
-    check(len(m.map_ids()) == 1, f"mono_loop: {len(m.map_ids())} maps after shutdown")
-    check(len(traj) >= N_LOOP - 20 and np.isfinite(est).all(), "mono_loop: trajectory")
-    check(rmse < 0.05 * CIRCUMFERENCE, f"mono_loop: scaled ATE {rmse}")
-    check(m.check_essential_graph() == [], "mono_loop: spanning tree broken")
+    check(slam.get_tracking_state() == State.OK, f"{tag}: final state not OK")
+    check(lc.n_loops_closed >= 1, f"{tag}: no loop closed")
+    check(len(m.map_ids()) == 1, f"{tag}: {len(m.map_ids())} maps after shutdown")
+    check(len(traj) >= N_LOOP - 20 and np.isfinite(est).all(), f"{tag}: trajectory")
+    check(rmse < 0.05 * CIRCUMFERENCE, f"{tag}: scaled ATE {rmse}")
+    check(m.check_essential_graph() == [], f"{tag}: spanning tree broken")
     check(n_fused > 0 and launches["patch_gather"] >= n_fused
-          and launches["pose_lm"] >= 4 * n_fused, "mono_loop: fewer launches than dispatches")
-    check(launches["pose_lm"] > 4 * n_fused, "mono_loop: the host path ran no pose LM")
+          and launches["pose_lm"] >= 4 * n_fused, f"{tag}: fewer launches than dispatches")
+    check(launches["pose_lm"] > 4 * n_fused, f"{tag}: the host path ran no pose LM")
+    check(dist_ba.counter.ba > 0 if dist else dist_ba.counter.ba == 0,
+          f"{tag}: {dist_ba.counter.ba} distributed GBA solves")
     # a second-lap frame the System never saw (5 s past the run's end)
     # relocalizes by BoW + PnP + pose LM on a keyframe of the first lap;
     # mono map units are arbitrary, so its pose is held against ground
@@ -781,11 +821,136 @@ def phase_mono_loop(dev, smi):
     err = float(np.linalg.norm(s * R @ (-frame.R.T @ frame.t) + tt + Rcw.T @ tcw)) if ok else -1.0
     ang = float(np.degrees(np.arccos(np.clip((np.trace(R @ frame.R.T @ Rcw) - 1) / 2, -1, 1)))) \
         if ok else -1.0
-    log(f"[mono_loop] BoW relocalization of unseen frame {i} (t {t:.3f} s, second lap): {ok}, "
+    log(f"[{tag}] BoW relocalization of unseen frame {i} (t {t:.3f} s, second lap): {ok}, "
         f"keyframe {kf} (t {m.kf_time[kf]:.3f} s), {slam.tracker.n_inliers} inliers, "
         f"{err * 100:.3f} cm and {ang:.3f} deg from ground truth after the scaled alignment")
     check(ok and slam.tracker.n_inliers >= 15 and m.kf_valid[kf] and m.kf_time[kf] < lap_s
-          and err < 0.20 and ang < 3.0, "mono_loop: BoW relocalization on the first lap failed")
+          and err < 0.20 and ang < 3.0, f"{tag}: BoW relocalization on the first lap failed")
+    return launches
+
+
+def mono_loop_rank(rank, world, device, smi, frames):
+    """Phase 10 (d) on one rank of a gloo group: rank 0 runs phase 5's mono
+    loop with its GBA distributed (phase_mono_loop(dist=True)) and returns
+    its launch counts and distributed solves; the other ranks serve those
+    solves and return how many they served."""
+    import torch
+
+    from tpuslam_torch.parallel import dist_ba
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    if rank:
+        return dist_ba.serve(device=dev)
+    try:
+        launches = phase_mono_loop(dev, smi, frames, dist=True)
+    finally:
+        dist_ba.release_followers()
+    return launches, dist_ba.counter.ba
+
+
+def phase_dist(dev, smi, loop_frames):
+    """Phase 10: the distributed BA. Returns the launch counts of (d)."""
+    import torch
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    import bench_dist_torch as BD
+    from tpuslam_torch.parallel import dist_ba, launch
+    from tpuslam_torch.solve.ba import ba_solve_np
+
+    t_phase = time.perf_counter()
+    args = BD.problem_args()
+    # (a) bench_dist_torch's problem on a one-rank NCCL group, against the
+    # single-device solver on the same card
+    launch.init_rank(0, 1, launch.free_port(), "nccl", DIST_TIMEOUT)
+    try:
+        dist_ba.counter.__init__()
+        t0 = time.perf_counter()
+        Ra, ta, Xa, _ = dist_ba.dist_ba_solve(None, *args, n_iters=10, device=dev)
+        solve_a = time.perf_counter() - t0
+        acc_a, trials_a = dist_ba.counter.accepted, dist_ba.counter.trials
+        step_a = BD.time_step(None, dev, reps=20)
+        step, step_args = BD.trial_step(None, dev)
+        step(*step_args)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            step(*step_args)
+            torch.cuda.synchronize()
+    finally:
+        torch.distributed.destroy_process_group()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(evs, "dist a: torch.profiler saw no CUDA kernel in a trial step")
+    busy_a = sum(e.time_range.elapsed_us() for e in evs) / 1e3
+    nccl_a = sum("nccl" in e.name.lower() for e in evs)
+    t0 = time.perf_counter()
+    R1, t1, X1, _, _ = ba_solve_np(*args, n_iters=10, device=dev)
+    solve_1 = time.perf_counter() - t0
+    cost_a, cost_1 = BD.problem_cost(Ra, ta, Xa), BD.problem_cost(R1, t1, X1)
+    err = (np.abs(Ra - R1).max(), np.abs(ta - t1).max())
+    log(f"[dist a] K30 / P3000 / O15360, f32, one-rank NCCL group: dist_ba_solve {solve_a:.3f} s "
+        f"({acc_a} steps accepted of {trials_a}), cost {cost_a:.3f}; ba_solve_np on the same card "
+        f"{solve_1:.3f} s, cost {cost_1:.3f}; |dR| {err[0]:.2e} |dt| {err[1]:.2e}; the trial step "
+        f"(15 PCG iterations) {step_a * 1e3:.3f} ms = {1.0 / step_a:.2f} iters/s, one step "
+        f"{len(evs)} CUDA kernels ({nccl_a} NCCL), device busy {busy_a:.3f} ms; card {smi}")
+    check(err[0] < 1e-3 and err[1] < 1e-3, f"dist a: pose error {err} against ba_solve_np")
+    check(0.5 < cost_a / cost_1 < 2.0, f"dist a: cost {cost_a} against ba_solve_np's {cost_1}")
+    # (b) the same over N_DIST_RANKS gloo ranks that share the card; (c) the
+    # engine's GBA dry run and a window inertial BA over them
+    t0 = time.perf_counter()
+    res = launch.run(BD.dist_checks_rank, N_DIST_RANKS, args=(str(dev),), timeout=DIST_TIMEOUT)
+    wall_bc = time.perf_counter() - t0
+    lead = res[0]
+    Rb, tb, Xb, cost_b = lead["problem"]
+    err_b = (np.abs(Rb - Ra).max(), np.abs(tb - ta).max(), np.abs(Xb - Xa).max())
+    same = all(np.array_equal(a, b) for r in res[1:] for a, b in zip(lead["problem"], r["problem"]))
+    log(f"[dist b] {N_DIST_RANKS} gloo ranks on the card (CUDA tensors staged through the host): "
+        f"{lead['accepted']} steps accepted of {lead['trials']}; against (a) |dR| {err_b[0]:.2e} "
+        f"|dt| {err_b[1]:.2e} |dX| {err_b[2]:.2e}; every rank's state bitwise equal: {same}; "
+        f"the trial step {lead['step_s'] * 1e3:.3f} ms on rank 0 "
+        f"({[round(r['step_s'] * 1e3, 3) for r in res]} ms by rank); ranks' run {wall_bc:.1f} s")
+    check(same, "dist b: the ranks' states differ")
+    check(err_b[0] < 1e-4 and err_b[1] < 1e-4 and err_b[2] < 1e-2,
+          f"dist b: {N_DIST_RANKS} ranks against one: {err_b}")
+    served = lead["ba_solves"] + lead["viba_solves"]
+    check(all(r["served"] == served for r in res[1:]), "dist c: a follower missed a solve")
+    lc, snap, cost = BD.dryrun_closer(device=dev)
+    t0 = time.perf_counter()
+    R1, t1, X1 = lc._solve_gba(snap, n_iters=6)
+    gba_1 = time.perf_counter() - t0
+    d = lead["dryrun"]
+    Rd, td, _ = d["solved"]
+    err_c = (np.abs(Rd - R1).max(), np.abs(td - t1).max())
+    log(f"[dist c] the engine's GBA dry run (K30 / P3000, {d['obs']} observations) over "
+        f"{N_DIST_RANKS} ranks: cost {d['cost_before']:.4f} -> {d['cost_after']:.4f} in "
+        f"{d['solve_s']:.3f} s ({lead['ba_solves']} distributed solves); one rank: "
+        f"{cost(R1, t1, X1):.4f} in {gba_1:.3f} s; |dR| {err_c[0]:.2e} |dt| {err_c[1]:.2e}")
+    check(d["obs"] > 10_000 and lead["ba_solves"] == 3, "dist c: the dry run's route")
+    check(d["cost_after"] < 0.5 * d["cost_before"], f"dist c: cost {d['cost_before']} -> "
+          f"{d['cost_after']}")
+    # the cost and the rotations agree; the translations within 1 cm, as
+    # the scale gauge of a GBA with one fixed keyframe and no stereo is flat
+    check(abs(d["cost_after"] / cost(R1, t1, X1) - 1.0) < 1e-3 and err_c[0] < 1e-4
+          and err_c[1] < 1e-2, f"dist c: the dry run against one rank: {err_c}")
+    vi1 = BD.vi_window_ba(dev)
+    vi = lead["vi"]
+    err_vi = [float(np.abs(a - b).max()) for a, b in zip(vi["state"], vi1["state"])]
+    log(f"[dist c] window inertial BA ({vi['obs']} observations, f32) over {N_DIST_RANKS} ranks "
+        f"in {vi['solve_s']:.3f} s ({lead['viba_solves']} distributed solve), one rank "
+        f"{vi1['solve_s']:.3f} s; |dR| |dt| |dv| {err_vi}")
+    check(lead["viba_solves"] == 1 and max(err_vi) < 5e-3,
+          f"dist c: the window inertial BA against one rank: {err_vi}")
+    # (d) phase 5's mono loop as rank 0 of a 2-rank group
+    t0 = time.perf_counter()
+    (launches, n_gba), served = launch.run(mono_loop_rank, 2, args=(str(dev), smi, loop_frames),
+                                           timeout=DIST_TIMEOUT)
+    log(f"[dist d] mono loop on rank 0 of 2: {n_gba} distributed GBA solves, {served} served by "
+        f"rank 1; launches {launches}; ranks' run {time.perf_counter() - t0:.1f} s")
+    check(n_gba > 0 and served == n_gba, "dist d: the loop's GBA did not take the distributed "
+          "route")
+    log(f"[dist] phase 10 in {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -1390,17 +1555,20 @@ def main():
     by_path.update(phase_system(dev, seq, frames, smi))
     cli_images = frames[:N_CLI]
     del frames
-    by_path["mono_loop"] = phase_mono_loop(dev, smi)
+    loop_frames = render_loop()
+    by_path["mono_loop"] = phase_mono_loop(dev, smi, loop_frames)
     by_path["rgbd"] = phase_rgbd(dev, smi)
     by_path["mono_vi"] = phase_mono_vi(dev, smi)
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
     by_path.update(phase_cli(dev, smi, cli_images))
+    by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     patch = records[0]
     patch["fisheye_shapes"] = fish_shapes
     patch["max_abs_err"] = max([patch["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
-                      "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP, "rgbd": N_RGBD,
+                      "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
+                      "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
                       "mono_vi": N_VI, "fisheye_stereo": N_FISH, "cli": N_CLI,
                       "cli_b": 2 * N_CLI}
     for r in records:

@@ -1,9 +1,9 @@
 """The port stands alone and runs on the card by default.
 
-  * No module of tpuslam_torch, and nothing in chip_smoke.py or
-    scripts/make_synth_euroc_torch.py, imports tpuslam or jax, nor what the
-    card host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of
-    them blocked imports them all).
+  * No module of tpuslam_torch, and nothing in chip_smoke.py,
+    bench_dist_torch.py or scripts/make_synth_euroc_torch.py, imports
+    tpuslam or jax, nor what the card host lacks: cv2, yaml, matplotlib,
+    PIL (a subprocess with all of them blocked imports them all).
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
@@ -43,13 +43,15 @@ names = [m.name for m in pkgutil.walk_packages(tpuslam_torch.__path__, "tpuslam_
 for name in names:
     importlib.import_module(name)
 import chip_smoke
+import bench_dist_torch
 spec = importlib.util.spec_from_file_location("synth", "scripts/make_synth_euroc_torch.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = {k for k, v in sys.modules.items() if v is not None}
 assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
 assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
         "tpuslam_torch.io.rectify", "tpuslam_torch.io.png", "tpuslam_torch.place.orbvoc",
-        "tpuslam_torch.place.store", "tpuslam_torch.map.checkpoint"} <= set(names)
+        "tpuslam_torch.place.store", "tpuslam_torch.map.checkpoint",
+        "tpuslam_torch.parallel.dist_ba", "tpuslam_torch.parallel.launch"} <= set(names)
 print("ISOLATED_OK", len(names))
 """ % (BLOCKED,)
 
@@ -128,10 +130,34 @@ def _entry(name):
         return fn(SlamMap(64), _cam(), ImuCalib(), np.ones(8), [], [])
     if name == "run.main":
         return _run_main()
+    if name in ("dist_ba_solve", "dist_viba_solve"):
+        return _dist_entry(name)
     if name == "match_padded":
         return match_padded(np.zeros((0, 32), np.uint8), np.zeros((3, 32), np.uint8),
                             np.zeros((0, 3), bool))
     raise KeyError(name)
+
+
+def _dist_entry(name):
+    """A one-observation distributed solve with its default device, in a
+    one-rank gloo group."""
+    from tpuslam_torch.parallel import dist_ba, launch
+
+    launch.init_rank(0, 1, launch.free_port(), "gloo", 60.0)
+    try:
+        obs = ([0], [0], np.array([[100.0, 100.0, 0.0]]), [1.0], [False], [True])
+        pose = (np.eye(3)[None], np.zeros((1, 3)))
+        X = np.array([[0.0, 0.0, 2.0]])
+        if name == "dist_ba_solve":
+            return dist_ba.dist_ba_solve(None, *pose, X, *obs, [True], 200.0, 200.0, 100.0,
+                                         100.0, 0.0, n_iters=1)
+        z = np.zeros((1, 3))
+        pre = {k: np.zeros((0, 3)) for k in ("dR", "dV", "dP")}
+        return dist_ba.dist_viba_solve(None, *pose, z, z, z, X, *obs, [], [], pre,
+                                       np.zeros((0, 9, 9)), z, z, [], [], [True], 200.0, 200.0,
+                                       100.0, 100.0, 0.0, np.eye(3), np.zeros(3), n_iters=1)
+    finally:
+        torch.distributed.destroy_process_group()
 
 
 def _run_main():
@@ -160,7 +186,8 @@ def _run_main():
                                   "BinaryVocabulary.transform", "window_ba", "ba_solve_np",
                                   "optimize_essential_graph", "match_padded",
                                   "preintegrate_window", "run_imu_init", "window_inertial_ba",
-                                  "full_inertial_ba", "local_inertial_ba", "run.main"])
+                                  "full_inertial_ba", "local_inertial_ba", "run.main",
+                                  "dist_ba_solve", "dist_viba_solve"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         obj = _entry(name)

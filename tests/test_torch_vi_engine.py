@@ -14,8 +14,9 @@ IMU at 400 Hz), carried into the port with map_state / map_from_numpy.
     within 1e-7) and stages velocities and biases with the poses.
   * The IMU guards of tests/test_imu_guards.py on the port's System, and
     why no rendered sequence passes the stereo-inertial init gate.
-  * A process group of more than one rank routes the large VI BA to
-    ROADMAP item "distribution", which raises.
+  * In a process group of more than one rank the large VI BA and the
+    inertial GBA take the distributed FullInertialBA and land on the
+    single-rank route's result.
 """
 
 import jax.numpy as jnp
@@ -41,8 +42,10 @@ from tpuslam_torch.imu import preintegration as TP
 from tpuslam_torch.imu.preintegration import ImuCalib
 from tpuslam_torch.io.synthetic import SyntheticSequence
 from tpuslam_torch.map.store import FrameFeatures, SlamMap, map_from_numpy, map_state
+from tpuslam_torch.parallel import launch
 from tpuslam_torch.place import train_vocabulary
 
+import torch_dist_jobs as jobs
 from test_engine_vi import CX, CY, FX, FY, _build_map, _Cam
 
 torch.set_num_threads(2)
@@ -225,16 +228,42 @@ def test_inertial_gba_routes_solves_and_stages_like_tpuslam():
                                atol=1e-9)
 
 
-def test_multi_rank_vi_ba_is_distribution(monkeypatch):
-    """With a process group of more than one rank up, tpuslam shards a large
-    VI BA over it: that route is ROADMAP item 'distribution' and raises."""
+def test_multi_rank_vi_ba_is_distribution():
+    """In a process group of more than one rank, window_inertial_ba with
+    DIST_VIBA_MIN_OBS = 0 routes its solve to the distributed FullInertialBA
+    (rank 0 dispatches, rank 1 serves) and lands within 5e-3 of the
+    single-rank route (tests/test_dist_viba.py::test_engine_routes_to_dist_viba,
+    its map from seed 7)."""
+    _, tm_, _, calib, kfs = _pair(7)
+    state = map_state(tm_)
+    TEI.window_inertial_ba(tm_, _cam(), calib, np.ones(8), opt_kfs=kfs, fixed_kfs=[],
+                           n_iters=12, fix_first=True, **F64)
+    lead, follower = launch.run(jobs.window_viba, 2, args=(state, _cam(), calib, kfs, 12),
+                                timeout=120.0)
+    assert lead["viba"] == follower["served"] == 1
+    assert lead["foreign"] == follower["foreign"] == []
+    for i, k in enumerate(kfs):
+        assert np.abs(tm_.kf_t[k] - lead["kf_t"][i]).max() < 5e-3, k
+        assert np.abs(tm_.kf_R[k] - lead["kf_R"][i]).max() < 5e-3, k
+
+
+def test_inertial_gba_over_ranks_lands_on_the_single_rank_route():
+    """The loop closer's chunked FullInertialBA (tests/test_gba_inertial.py's
+    scenario, 21 iterations in 3 chunks) in a group of 2 ranks with
+    DIST_VIBA_MIN_OBS = 0: each chunk is a distributed solve, and the
+    solved states land within 5e-3 of the single-rank route's."""
     _, tm_, _, calib, kfs = _pair()
-    monkeypatch.setattr(TEI, "DIST_VIBA_MIN_OBS", 0)
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda group=None: 2)
-    with pytest.raises(NotImplementedError, match="distribution"):
-        TEI.window_inertial_ba(tm_, _cam(), calib, np.ones(8), opt_kfs=kfs, fixed_kfs=[],
-                               n_iters=2, fix_first=True, **F64)
+    tm_.imu_initialized = tm_.inertial_ba1 = tm_.inertial_ba2 = True
+    _perturb(np.random.RandomState(4), (tm_,), kfs)
+    state = map_state(tm_)
+    lc = jobs.inertial_closer(state, _cam(), calib)
+    single = lc._solve_gba_vi(lc._snapshot_gba(fix_kf=kfs[0]), n_iters=21)
+    lead, follower = launch.run(jobs.inertial_gba, 2, args=(state, _cam(), calib, kfs[0], 21),
+                                timeout=120.0)
+    assert lead["viba"] == follower["served"] == 3
+    assert lead["foreign"] == follower["foreign"] == []
+    for name, a, b in zip(("R", "t", "X", "v", "bg", "ba"), lead["solved"], single):
+        assert np.abs(a - b).max() < 5e-3, name
 
 
 def test_map_state_carries_the_inertial_fields():

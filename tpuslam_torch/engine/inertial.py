@@ -23,14 +23,15 @@ from ..core.lie import so3_exp
 from ..imu.init import inertial_init_solve, linear_sgv_seed
 from ..imu.preintegration import (PRE_KEYS, ImuCalib, information_from_cov, pre_stack,
                                   preintegrate)
+from ..parallel import dist_ba
 from ..solve import ba as B
 from ..solve.inertial_ba import vi_ba_solve
 from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.verbose import print_mess
 
-# tpuslam routes full / window inertial BA through its obs-sharded
-# distributed solver when more than one device is visible and the visual
-# part has at least this many observations (ROADMAP item "distribution")
+# full / window inertial BA routes through the obs-sharded distributed
+# solver (parallel/dist_ba.py) when a group of more than one rank is up and
+# the visual part has at least this many observations
 DIST_VIBA_MIN_OBS = 20_000
 
 
@@ -387,19 +388,26 @@ def _window_viba_assemble(m, camera, calib, inv_sigma2, opt_kfs, fixed_kfs, fix_
         fixed=fixed, pair_a_a=pair_a.astype(np.int64), pair_b_a=pair_b.astype(np.int64))
 
 
-def multi_rank():
-    """True when a torch.distributed process group of more than one rank
-    is up: tpuslam would shard the large VI / visual GBA over it."""
-    return (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1)
-
-
 def solve_window_snapshot(snap, camera, calib, prior_g, prior_a, n_iters, device, dtype,
                           fixed=None):
     """vi_ba_solve on an assembled snapshot; returns numpy (Rwb, p, v, bg,
-    ba, X, cost). `fixed` overrides the snapshot's fixed-pose mask."""
-    if multi_rank() and snap["O"] >= DIST_VIBA_MIN_OBS:
-        raise NotImplementedError("the distributed VI BA is ROADMAP item 'distribution'")
+    ba, X, cost). `fixed` overrides the snapshot's fixed-pose mask. Large
+    problems in a group of more than one rank take the distributed
+    FullInertialBA (ref Optimizer.cc:420 is what GBA runs on inertial maps,
+    LoopClosing.cc:2437-2440): the visual blocks shard over the ranks, the
+    chain is replicated."""
+    O = snap["O"]
+    fixed = snap["fixed"] if fixed is None else fixed
+    if dist_ba.route_open() and O >= DIST_VIBA_MIN_OBS:
+        pres = {k: np.stack([np.asarray(pre[k], np.float64) for pre in snap["pres"]])
+                for k in PRE_KEYS}
+        return list(dist_ba.dispatch(
+            "viba", snap["Rwb"], snap["p"], snap["v"], snap["bg"], snap["ba"], snap["X"],
+            snap["obs_kf_a"], snap["obs_pt_a"], snap["uvr_a"], snap["inv_s2_a"],
+            np.zeros(O, bool), np.ones(O, bool), snap["ea"], snap["eb"], pres, snap["info9"],
+            snap["bg0"], snap["ba0"], snap["rw_g"], snap["rw_a"], fixed, camera.fx, camera.fy,
+            camera.cx, camera.cy, 0.0, calib.Rcb, calib.tcb, prior_g=prior_g, prior_a=prior_a,
+            n_iters=n_iters, cam=camera.spec, device=device, dtype=dtype))
 
     def f(x):
         return torch.as_tensor(np.asarray(x, np.float64), device=device).to(dtype)
@@ -407,14 +415,13 @@ def solve_window_snapshot(snap, camera, calib, prior_g, prior_a, n_iters, device
     def i(x):
         return torch.as_tensor(np.asarray(x), device=device)
 
-    O = snap["O"]
     out = vi_ba_solve(
         f(snap["Rwb"]), f(snap["p"]), f(snap["v"]), f(snap["bg"]), f(snap["ba"]), f(snap["X"]),
         i(snap["obs_kf_a"]), i(snap["obs_pt_a"]), f(snap["uvr_a"]), f(snap["inv_s2_a"]),
         torch.zeros(O, dtype=torch.bool, device=device),
         torch.ones(O, dtype=torch.bool, device=device), i(snap["ea"]), i(snap["eb"]),
         pre_stack(snap["pres"], device, dtype), f(snap["info9"]), f(snap["bg0"]),
-        f(snap["ba0"]), i(snap["fixed"] if fixed is None else fixed), i(snap["pair_a_a"]),
+        f(snap["ba0"]), i(fixed), i(snap["pair_a_a"]),
         i(snap["pair_b_a"]), camera.fx, camera.fy, camera.cx, camera.cy, 0.0,
         f(snap["rw_g"]), f(snap["rw_a"]), f(calib.Rcb), f(calib.tcb), prior_g=prior_g,
         prior_a=prior_a, n_iters=n_iters, cam=camera.spec)

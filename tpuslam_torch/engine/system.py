@@ -23,6 +23,7 @@ import torch
 from ..core import lie
 from ..map.checkpoint import load_map, save_map
 from ..map.store import SlamMap
+from ..parallel import dist_ba
 from ..parallel.async_mapping import AsyncMapper
 from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.timing import GLOBAL_TIMER
@@ -193,13 +194,16 @@ class System:
         """ref: System::Shutdown (System.cc:487) — settle the tracking
         pipeline, join the mapping worker and the background global BA.
         Worker errors stay in `async_mapper.errors` (AsyncMapper.flush
-        raises them)."""
+        raises them). On rank 0 of a process group of more than one rank it
+        then releases the ranks serving the distributed solves
+        (parallel/dist_ba.serve)."""
         self.tracker._flush_pipeline()
         self.tracker.last_frame = self.tracker._last_completed or self.tracker.last_frame
         if self.async_mapper is not None:
             self.async_mapper.shutdown()
         if self.loop_closer is not None:
             self.loop_closer.wait_gba()
+        dist_ba.release_followers()
 
     # ------------------------------------------------------------ trajectory
     def _ref_pose(self, ref_kf: int):

@@ -34,13 +34,14 @@ def _mv(A, x):
 
 
 def _reproj_parts(Rwb, p, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fx, fy, cx, cy,
-                  bf, Rcb=None, tcb=None, cam=PINHOLE, is_right=None):
+                  bf, Rcb=None, tcb=None, cam=PINHOLE, is_right=None, robust=True):
     """Residuals + Jacobians wrt the body-frame increments (dp, dphi) and X.
 
     Xb = Rwb^T (X - p); Xc = Rcb Xb + tcb (identity when Rcb / tcb are
     None). Updates p' = p + Rwb dp, Rwb' = Rwb Exp(dphi), so dXc/ddp = -Rcb,
     dXc/ddphi = Rcb hat(Xb), dXc/dX = Rcb Rwb^T. Returns (r, Jp [O,3,6],
-    Jl [O,3,3], w, per-observation cost)."""
+    Jl [O,3,3], w, per-observation cost); robust=False drops the Huber
+    kernel."""
     dtype = X.dtype
     Rk = Rwb[obs_kf]
     Xb = torch.einsum("oji,oj->oi", Rk, X[obs_pt] - p[obs_kf])   # Rwb^T (X - p)
@@ -57,8 +58,9 @@ def _reproj_parts(Rwb, p, X, obs_kf, obs_pt, uvr, inv_sigma2, stereo, valid, fx,
     Jp = Jproj @ dXc_du
     chi2 = (r * r).sum(-1) * inv_sigma2
     chi2_th = torch.where(stereo, CHI2_STEREO, CHI2_MONO).to(dtype)
-    w = huber_weight(chi2, chi2_th) * inv_sigma2 * valid.to(dtype) * (z > 0).to(dtype)
-    cost = torch.where(valid & (z > 0), huber_cost(chi2, chi2_th), 0.0)
+    w_rob = huber_weight(chi2, chi2_th) if robust else torch.ones_like(chi2)
+    w = w_rob * inv_sigma2 * valid.to(dtype) * (z > 0).to(dtype)
+    cost = torch.where(valid & (z > 0), huber_cost(chi2, chi2_th) if robust else chi2, 0.0)
     return r, Jp, Jl, w, cost
 
 
