@@ -3,7 +3,9 @@
     python3 chip_smoke.py
 
 Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
-levels at scale 1.2, stereo, monocular with loop closing, and RGB-D.
+levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
+mono-inertial, fisheye stereo, the dataset CLI, the distributed BA and the
+measuring tools.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -114,9 +116,27 @@ Phases, each raising on failure:
      with LoopConfig(dist_gba_min_obs=0, background_gba=False), rank 1
      serving: phase 5's gates, and its GBA on the distributed route. Each
      group has a timeout, and a rank that fails fails the phase.
+ 11. the level-0 option and the measuring tools, each cut to a few frames:
+     (a) phase 3 again with TrackingConfig(fused_sad="level0") (the
+     level-0 SAD refinement, ops/stereo.sad_refine): phase 3's gates and
+     exactly 2 patch-gather and 4 pose-LM launches per frame; (b)
+     bench_frontend_torch's kernel chain over 16 frames (inliers, a finite
+     pose, 1 patch-gather and 1 pose-LM launch per frame), then one forward
+     of its entry() on __graft_entry__.entry()'s inputs (2 / 4 launches);
+     (c) bench_torch.main over 40 frames and one timed pass: its JSON line
+     parses with bench.py's fields and metric name, the pass ends OK with
+     >= 3 keyframes, both kernels launched; (d) bench_sensors_torch's RGB-D
+     row over 20 frames (two passes): OK, a pose-LM launch on every frame
+     but the first of each pass; this path's own kernel inputs (frame 0's
+     patch gather, K = 700 over 8 levels of 376x240, and the first host
+     pose solve at each padded row count) held against the plain versions:
+     the gather bitwise, the pose LM with phase 2's tolerances.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
-per frame, phase 10's mono loop as mono_loop_dist), the nvidia-smi line
+per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
+level0_step, frontend_chain, graft_entry, bench_system and
+sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes), the
+nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -166,12 +186,12 @@ N_VI = 55              # phase 7: the frames of tests/test_e2e_mono_inertial.py
 VI_NOISE = dict(noise_gyro=1e-4, noise_acc=1e-3, walk_gyro=1e-6, walk_acc=1e-5)
 N_FISH, FISH_FPS, FISH_WH = 40, 20, 512   # phase 8: TUM-VI's camera rate and size
 FISH_BASELINE = 0.2
-# tests/test_e2e_fisheye.py's 256 px rig; phase 8 doubles fx, fy, cx, cy
-KB_L = [95.0, 95.0, 128.0, 128.0, 0.0034823894, 0.00071503485, -0.0020532361, 0.00020293674]
-KB_R = [94.8, 94.9, 127.6, 128.3, 0.0034003171, 0.0017662782, -0.0026631257, 0.00032995174]
 N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
 N_DIST_RANKS = 4       # phase 10 (b, c): gloo ranks sharing the card
 DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's run (s)
+N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
+N_BENCH = 40           # phase 11 (c): bench_torch's frames (a warm pass and one timed)
+N_SENSORS = 20         # phase 11 (d): bench_sensors_torch's RGB-D frames (two passes)
 
 
 def log(*a):
@@ -355,7 +375,8 @@ def patch_compare(levels, yx, budgets, size, what):
 
     got, ref, lib = kernel(), plain(), library()
     torch.cuda.synchronize()
-    check(got.shape == (N_FEATURES, size, size), f"{what}: patch shape {tuple(got.shape)}")
+    check(yx.shape[0] == sum(budgets) and got.shape == (yx.shape[0], size, size),
+          f"{what}: patch shape {tuple(got.shape)} for {yx.shape[0]} corners")
     check(torch.equal(got, ref), f"{what}: patch gather differs from its plain version")
     check(torch.equal(lib, ref), f"{what}: the unfold library call differs from the plain gather")
     timed = {}
@@ -378,6 +399,34 @@ def patch_compare(levels, yx, budgets, size, what):
     return dict(max_abs_err=float((got - ref).abs().max()), ms=host_ms, device_ms=dev_ms,
                 plain_ms=plain_ms, plain_device_ms=plain_dev, bound_ms=b_ms, bound_by=b_by,
                 bound_resource=b_res, bytes=n_bytes, library_ms=lib_ms, library_device_ms=lib_dev)
+
+
+def pose_lm_compare(solve, args, what, kw=None):
+    """One pose-LM launch through `solve` (the kernel's wrapper, or
+    pose_optimize_best, which casts to f32) against the plain version on
+    the same f32 inputs: |dR| <= 1e-4, |dt| <= 1e-3, inlier flags equal on
+    >= 99 % of the rows, no padded row an inlier, chi2 finite. Returns
+    (|dR|, |dt|, agreement, the kernel's outputs, the plain LM's rounds)."""
+    import torch
+
+    from tpuslam_torch.solve import pose_opt_cuda
+
+    args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + list(args[5:])
+    before = pose_opt_cuda.counter.launches
+    out = solve(*args, **(kw or {}))
+    check(pose_opt_cuda.counter.launches == before + 1, f"pose LM {what}: the solve did not launch")
+    rounds = []
+    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32, rounds=rounds)
+    torch.cuda.synchronize()
+    Rk, tk, ik, ck = out
+    eR = float((Rk - Rp).abs().max())
+    et = float((tk - tp).abs().max())
+    agree = float((ik == ip).float().mean())
+    check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99,
+          f"pose LM {what}: kernel vs plain out of tolerance (|dR| {eR}, |dt| {et}, {agree})")
+    check(not bool(ik[int(args[6].sum()):].any()), f"pose LM {what}: a padded row is an inlier")
+    check(bool(torch.isfinite(ck).all()), f"pose LM {what}: non-finite chi2")
+    return eR, et, agree, out, rounds
 
 
 def phase_kernels(dev, seq):
@@ -432,22 +481,12 @@ def phase_kernels(dev, seq):
     for name, args in shapes.items():
         host = name in ("host_768", "rgbd_256")
         args32 = [a.to(torch.float32).contiguous() for a in args[:5]] + args[5:]
-        before = pose_opt_cuda.counter.launches
-        Rk, tk, ik, ck = (pose_optimize_best if host else pose_opt_cuda.pose_optimize_fused)(*args)
-        check(pose_opt_cuda.counter.launches == before + 1, f"{name}: the solve did not launch")
+        eR, et, agree, out, rounds = pose_lm_compare(
+            pose_optimize_best if host else pose_opt_cuda.pose_optimize_fused, args, name)
         again = pose_opt_cuda.pose_optimize_fused(*args32)
-        rounds = []
-        Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32, rounds=rounds)
         torch.cuda.synchronize()
-        eR = float((Rk - Rp).abs().max())
-        et = float((tk - tp).abs().max())
-        agree = float((ik == ip).float().mean())
         n_valid = int(args[6].sum())
-        repeat = all(torch.equal(a, b) for a, b in zip(again, (Rk, tk, ik, ck)))
-        check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99,
-              f"pose LM {name}: kernel vs plain out of tolerance")
-        check(not bool(ik[n_valid:].any()), f"pose LM {name}: a padded row is an inlier")
-        check(bool(torch.isfinite(ck).all()), f"pose LM {name}: non-finite chi2")
+        repeat = all(torch.equal(a, b) for a, b in zip(again, out))
         check(repeat, f"pose LM {name}: two launches on the same inputs differ")
         worst = max(worst, eR, et)
         fused = lambda: pose_opt_cuda.pose_optimize_fused(*args32)  # noqa: E731
@@ -498,6 +537,23 @@ def phase_kernels(dev, seq):
     return records
 
 
+def counts_now():
+    """Both kernels' launch counters."""
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda
+
+    return {"patch_gather": patch_cuda.counter.launches, "pose_lm": pose_opt_cuda.counter.launches}
+
+
+def reset_counts():
+    """Both kernels' launch counters to 0, just before a path is driven."""
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda
+
+    patch_cuda.counter.launches = 0
+    pose_opt_cuda.counter.launches = 0
+
+
 class plain_path:
     """Run the step with the kernels' plain versions on the card."""
 
@@ -523,7 +579,9 @@ def rot_err_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
 
 
-def phase_slice(dev, seq, all_frames):
+def phase_slice(dev, seq, all_frames, sad="pyramid"):
+    """The bare fused step (TrackingConfig(fused_sad=sad)) over frames
+    1..16 against ground truth and its plain path; returns the launches."""
     import torch
 
     from tpuslam_torch.cameras import Pinhole
@@ -536,14 +594,15 @@ def phase_slice(dev, seq, all_frames):
     frames = [np.stack(f) for f in all_frames[:N_FRAMES]]
     cam = Pinhole([FX, FY, seq.cx, seq.cy], W, H)
     bf = FX * BASELINE
-    step = FusedTrackStep(cam, OrbConfig(n_features=N_FEATURES), TrackingConfig(),
+    step = FusedTrackStep(cam, OrbConfig(n_features=N_FEATURES), TrackingConfig(fused_sad=sad),
                           N_LEVELS, SCALE, bf, True, device=dev)
+    tag = "slice" if sad == "pyramid" else f"slice {sad}"
     f0 = step.extract(torch.tensor(frames[0], device=dev))
     f0["und_xy"] = f0["xy"]
     local = stereo_local_map({k: v.cpu().numpy() for k, v in f0.items()},
                              FX, FY, seq.cx, seq.cy, step.sf.cpu().numpy(), p_base=P_BASE)
     n_rows = int(local[2].sum())
-    log(f"[slice] local map from frame 0: {n_rows} points, P bucket {local[0].shape[0]}")
+    log(f"[{tag}] local map from frame 0: {n_rows} points, P bucket {local[0].shape[0]}")
     check(local[0].shape[0] == P_BASE, "local map does not fill the P=2048 bucket")
     pose0 = np.concatenate([np.eye(3).ravel(), np.zeros(4)]).astype(np.float32)
     min_req2 = np.float32([2 * TrackingConfig().min_inliers_local])
@@ -574,13 +633,11 @@ def phase_slice(dev, seq, all_frames):
         torch.cuda.synchronize()
         return outs, pins, [a.elapsed_time(b) for a, b in times]
 
-    patch_cuda.counter.launches = 0
-    pose_opt_cuda.counter.launches = 0
+    reset_counts()
     outs, pose_ins, ms_k = run(step)
-    launches = {"patch_gather": patch_cuda.counter.launches,
-                "pose_lm": pose_opt_cuda.counter.launches}
+    launches = counts_now()
     n = len(inputs)
-    log(f"[slice] kernel launches over {n} frames: {launches}")
+    log(f"[{tag}] kernel launches over {n} frames: {launches}")
     check(launches == {"patch_gather": 2 * n, "pose_lm": 4 * n},
           f"launch counters {launches} != 2 / 4 per frame")
     with plain_path():
@@ -607,14 +664,14 @@ def phase_slice(dev, seq, all_frames):
         dt = float(np.abs(pp[9:12] - pose[9:12]).max())
         agree = float((o["assoc"] == op["assoc"]).float().mean())
         n_inl = int(pose[12])
-        log(f"[slice] frame {i:2d}: |t err| {e_t * 100:.3f} cm, R err {e_r:.4f} deg, "
+        log(f"[{tag}] frame {i:2d}: |t err| {e_t * 100:.3f} cm, R err {e_r:.4f} deg, "
             f"inliers {n_inl}, vs plain |dR| {dR:.2e} |dt| {dt:.2e} assoc {agree:.4f}, "
             f"{ms_k[k]:.3f} ms (kernels) {ms_p[k]:.3f} ms (plain)")
         check(e_t < 0.05 and e_r < 1.0, f"frame {i}: pose off ground truth")
         check(n_inl >= 50, f"frame {i}: only {n_inl} inliers")
         check(dR <= 5e-4 and dt <= 5e-3 and agree >= 0.95,
               f"frame {i}: kernel path differs from the plain path")
-    log(f"[slice] median ms/frame over {n} frames (CUDA events, first frames include "
+    log(f"[{tag}] median ms/frame over {n} frames (CUDA events, first frames include "
         f"warm-up): kernels {np.median(ms_k):.3f}, plain {np.median(ms_p):.3f}")
     return launches
 
@@ -629,8 +686,6 @@ def phase_system(dev, seq, frames, smi):
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
     from tpuslam_torch.eval.ate import ate_rmse as ate
-    from tpuslam_torch.ops import patch_cuda
-    from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
     cam = Pinhole([FX, FY, seq.cx, seq.cy], W, H)
@@ -641,8 +696,7 @@ def phase_system(dev, seq, frames, smi):
         slam = System(cam, cfg, sensor=Sensor.STEREO, bf=FX * BASELINE, async_mapping=asyn,
                       device=dev)
         GLOBAL_TIMER.samples.clear()
-        patch_cuda.counter.launches = 0
-        pose_opt_cuda.counter.launches = 0
+        reset_counts()
         wall = []
         for i in range(N_SYSTEM):
             if not asyn:
@@ -652,8 +706,7 @@ def phase_system(dev, seq, frames, smi):
             wall.append((time.perf_counter() - t0) * 1e3)
         slam.shutdown()
         torch.cuda.synchronize()
-        launches = {"patch_gather": patch_cuda.counter.launches,
-                    "pose_lm": pose_opt_cuda.counter.launches}
+        launches = counts_now()
         n_fused = len(GLOBAL_TIMER.samples.get("fused.dispatch", []))
         errors = slam.async_mapper.errors if slam.async_mapper is not None else []
         m = slam.map
@@ -733,10 +786,8 @@ def phase_mono_loop(dev, smi, frames, dist=False):
     from tpuslam_torch.engine.tracking import Frame, State
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.eval.ate import horn_align
-    from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.parallel import dist_ba
     from tpuslam_torch.place import train_vocabulary
-    from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
     tag = "mono_loop_dist" if dist else "mono_loop"
@@ -764,8 +815,7 @@ def phase_mono_loop(dev, smi, frames, dist=False):
     slam = System(cam, cfg, sensor=Sensor.MONOCULAR, vocab=vocab, device=dev)
     GLOBAL_TIMER.samples.clear()
     dist_ba.counter.__init__()
-    patch_cuda.counter.launches = 0
-    pose_opt_cuda.counter.launches = 0
+    reset_counts()
     wall = []
     for i, t in enumerate(seq.timestamps()):
         slam.tracker.fused_enabled = i not in LOOP_HOST_PATH
@@ -774,8 +824,7 @@ def phase_mono_loop(dev, smi, frames, dist=False):
         wall.append((time.perf_counter() - t1) * 1e3)
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = {"patch_gather": patch_cuda.counter.launches,
-                "pose_lm": pose_opt_cuda.counter.launches}
+    launches = counts_now()
     n_fused = len(GLOBAL_TIMER.samples.get("fused.dispatch", []))
     m = slam.map
     traj = slam.trajectory_tum()
@@ -964,7 +1013,6 @@ def phase_rgbd(dev, smi):
     from tpuslam_torch.engine.tracking import State
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.io.synthetic import SyntheticSequence
-    from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
@@ -979,8 +1027,7 @@ def phase_rgbd(dev, smi):
     slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.RGBD,
                   bf=FX * 0.08, device=dev)
     GLOBAL_TIMER.samples.clear()
-    patch_cuda.counter.launches = 0
-    pose_opt_cuda.counter.launches = 0
+    reset_counts()
     wall, per_frame = [], []
     for i, t in enumerate(seq.timestamps()):
         before = pose_opt_cuda.counter.launches
@@ -990,8 +1037,7 @@ def phase_rgbd(dev, smi):
         per_frame.append(pose_opt_cuda.counter.launches - before)
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = {"patch_gather": patch_cuda.counter.launches,
-                "pose_lm": pose_opt_cuda.counter.launches}
+    launches = counts_now()
     m = slam.map
     traj = slam.trajectory_tum()
     est = np.array([r[1:4] for r in traj])
@@ -1054,8 +1100,7 @@ def phase_mono_vi(dev, smi):
     slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.IMU_MONOCULAR,
                   imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate), device=dev)
     GLOBAL_TIMER.samples.clear()
-    patch_cuda.counter.launches = 0
-    pose_opt_cuda.counter.launches = 0
+    reset_counts()
     wall, rows = [], []
 
     def counts():
@@ -1076,8 +1121,7 @@ def phase_mono_vi(dev, smi):
                                     (a - b for a, b in zip(counts(), before))))))
     slam.shutdown()
     torch.cuda.synchronize()
-    launches = {"patch_gather": patch_cuda.counter.launches,
-                "pose_lm": pose_opt_cuda.counter.launches}
+    launches = counts_now()
     m = slam.map
     traj = slam.trajectory_tum()
     est = np.array([r[1:4] for r in traj])
@@ -1182,6 +1226,7 @@ def phase_fisheye(dev, smi):
     the launch counts."""
     import torch
 
+    from bench_sensors_torch import KB_L, KB_R
     from tpuslam_torch.cameras import KannalaBrandt8
     from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
     from tpuslam_torch.engine.system import Sensor, System
@@ -1189,10 +1234,10 @@ def phase_fisheye(dev, smi):
     from tpuslam_torch.eval.ate import ate_rmse
     from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.ops import orb, patch_cuda
-    from tpuslam_torch.solve import pose_opt_cuda, pose_opt_dispatch
+    from tpuslam_torch.solve import pose_opt_dispatch
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
-    def rig(p):
+    def rig(p):  # bench_sensors_torch's 256 px rig, fx, fy, cx, cy doubled
         return [2 * v for v in p[:4]] + p[4:]
 
     lap = (0, FISH_WH - 1)
@@ -1229,8 +1274,7 @@ def phase_fisheye(dev, smi):
     pose_opt_dispatch.pose_optimize = counted
     orb.extract_patches_levels = captured
     GLOBAL_TIMER.samples.clear()
-    patch_cuda.counter.launches = 0
-    pose_opt_cuda.counter.launches = 0
+    reset_counts()
     wall, per_frame = [], []
     try:
         for i in range(N_FISH):
@@ -1245,8 +1289,7 @@ def phase_fisheye(dev, smi):
     finally:
         pose_opt_dispatch.pose_optimize = real_solve
         orb.extract_patches_levels = real_gather
-    launches = {"patch_gather": patch_cuda.counter.launches,
-                "pose_lm": pose_opt_cuda.counter.launches}
+    launches = counts_now()
     # the kernel against its plain version on exactly what this path gave it
     check(len(gathers) == 2, f"fisheye: {len(gathers)} patch gathers captured on frame 0")
     shapes = {side: patch_compare(*g, f"fisheye {FISH_WH}x{FISH_WH} frame 0 {side}")
@@ -1345,11 +1388,9 @@ def phase_cli(dev, smi, images):
     from tpuslam_torch.io.settings import load_settings
     from tpuslam_torch.io.synthetic import SyntheticSequence
     from tpuslam_torch.map import checkpoint
-    from tpuslam_torch.ops import patch_cuda
     from tpuslam_torch.place import (load_orbvoc, save_orbvoc_binary, save_orbvoc_text,
                                      train_vocabulary)
     from tpuslam_torch.place.store import load_vocabulary, save_vocabulary
-    from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
     t_phase = time.perf_counter()
@@ -1422,15 +1463,13 @@ def phase_cli(dev, smi, images):
     counts = {}
     with recorded_systems() as systems:
         GLOBAL_TIMER.samples.clear()
-        patch_cuda.counter.launches = 0
-        pose_opt_cuda.counter.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):   # its report is logged below
             rep = run.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts["cli"] = {"patch_gather": patch_cuda.counter.launches,
-                         "pose_lm": pose_opt_cuda.counter.launches}
+        counts["cli"] = counts_now()
     slam = systems[0]
     log(f"[cli A] python -m tpuslam_torch.run {' '.join(argv)}")
     log(f"[cli A] report {json.dumps(rep)}; run.main wall {wall:.1f} s; card {smi}")
@@ -1473,15 +1512,13 @@ def phase_cli(dev, smi, images):
             "--output", out["kitti"]]
     with recorded_systems() as systems:
         GLOBAL_TIMER.samples.clear()
-        patch_cuda.counter.launches = 0
-        pose_opt_cuda.counter.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(io.StringIO()):
             rep = run.main(argv)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts["cli_b"] = {"patch_gather": patch_cuda.counter.launches,
-                           "pose_lm": pose_opt_cuda.counter.launches}
+        counts["cli_b"] = counts_now()
     slam = systems[0]
     log(f"[cli B] python -m tpuslam_torch.run {' '.join(argv)}")
     log(f"[cli B] report {json.dumps(rep)}; run.main wall {wall:.1f} s; launches "
@@ -1506,6 +1543,120 @@ def phase_cli(dev, smi, images):
     shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase 9 in {time.perf_counter() - t_phase:.1f} s")
     return counts
+
+
+def last_json(out):
+    """The last JSON object line a tool printed."""
+    return json.loads([line for line in out.splitlines() if line.startswith("{")][-1])
+
+
+def phase_tools(dev, smi, seq, frames):
+    """Phase 11: the level-0 fused step and the measuring tools
+    (bench_frontend_torch, its entry(), bench_torch, bench_sensors_torch),
+    each cut to a few frames; returns the launch counts by path and the
+    RGB-D row's kernel shapes with their agreement."""
+    import torch
+
+    import bench_frontend_torch
+    import bench_sensors_torch
+    import bench_torch
+    from tpuslam_torch.engine import tracking
+    from tpuslam_torch.ops import orb
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
+
+    t_phase = time.perf_counter()
+    counts = {"level0_step": phase_slice(dev, seq, frames, sad="level0")}
+
+    # (b) bench_frontend_torch's chain: 1 patch gather and 1 pose LM a frame
+    forward, inputs = bench_frontend_torch.kernel_chain(dev)
+    bench_frontend_torch.chain_time(forward, inputs, 1)
+    reset_counts()
+    dt, inliers, (R, t) = bench_frontend_torch.chain_time(forward, inputs, N_CHAIN)
+    counts["frontend_chain"] = counts_now()
+    finite = bool(torch.isfinite(R).all()) and bool(torch.isfinite(t).all())
+    log(f"[tools] frontend chain over {N_CHAIN} frames: {dt / N_CHAIN * 1e3:.3f} ms/frame "
+        f"(host clock, one synchronize), last frame {inliers} inliers, pose finite {finite}, "
+        f"launches {counts['frontend_chain']}; card {smi}")
+    check(inliers > 0 and finite, "frontend chain: no inliers or a non-finite pose")
+    check(counts["frontend_chain"] == {"patch_gather": N_CHAIN, "pose_lm": N_CHAIN},
+          f"frontend chain: launches {counts['frontend_chain']} != 1 / 1 per frame")
+    fwd, args = bench_frontend_torch.entry(dev)
+    reset_counts()
+    pose, assoc, rowflags = fwd(*args)
+    torch.cuda.synchronize()
+    counts["graft_entry"] = counts_now()
+    log(f"[tools] entry(): one fused step on the graft entry inputs, pose "
+        f"{pose[:12].cpu().numpy().round(4).tolist()}, {int(pose[12])} inliers, launches "
+        f"{counts['graft_entry']}")
+    check(pose.shape == (13,) and bool(torch.isfinite(pose).all()) and assoc.shape == (N_FEATURES,)
+          and rowflags.shape == (2 * P_BASE,), "entry(): bad outputs")
+    check(counts["graft_entry"] == {"patch_gather": 2, "pose_lm": 4},
+          f"entry(): launches {counts['graft_entry']} != 2 / 4")
+
+    # (c) bench_torch's System run, cut to N_BENCH frames and one pass
+    reset_counts()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        med = bench_torch.main(["--frames", str(N_BENCH), "--passes", "1"])
+    counts["bench_system"] = counts_now()
+    row = last_json(out.getvalue())
+    log(f"[tools] bench_torch --frames {N_BENCH} --passes 1 ({time.perf_counter() - t0:.1f} s, "
+        f"rendering included): {json.dumps(row)}; pass {med}; launches "
+        f"{counts['bench_system']}; card {smi}")
+    check(set(row) == {"metric", "value", "unit", "vs_baseline"}
+          and row["metric"] == "system_track_stereo_fps_752x480_1024feat" and row["value"] > 0,
+          f"bench_torch: JSON line {row}")
+    check(med["state"] == "OK" and med["kfs"] >= 3, f"bench_torch: pass {med}")
+    check(min(counts["bench_system"].values()) > 0,
+          f"bench_torch: a kernel was never launched: {counts['bench_system']}")
+
+    # (d) bench_sensors_torch's RGB-D row: a pose LM on every frame. Frame
+    # 0's patch-gather inputs and the first host pose solve at each padded
+    # row count are captured, to hold both kernels on this path's own shapes
+    gathers, solves = [], {}
+    real_gather, real_solve = orb.extract_patches_levels, tracking.pose_optimize
+
+    def captured_gather(levels, yx, budgets, size):
+        if not gathers:
+            gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets), size))
+        return real_gather(levels, yx, budgets, size)
+
+    def captured_solve(*a, **kw):
+        solves.setdefault(a[2].shape[0], ([x.clone() if torch.is_tensor(x) else x for x in a],
+                                          kw))
+        return real_solve(*a, **kw)
+
+    orb.extract_patches_levels, tracking.pose_optimize = captured_gather, captured_solve
+    reset_counts()
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            bench_sensors_torch.main(["--sensors", "rgbd", "--frames", str(N_SENSORS)])
+    finally:
+        orb.extract_patches_levels, tracking.pose_optimize = real_gather, real_solve
+    counts["sensors_rgbd"] = counts_now()
+    row = last_json(out.getvalue())
+    log(f"[tools] bench_sensors_torch --sensors rgbd --frames {N_SENSORS}: {json.dumps(row)}; "
+        f"launches {counts['sensors_rgbd']}; card {smi}")
+    check(row["metric"] == "system_track_rgbd_376x240_700feat_fps" and row["state"] == "OK"
+          and row["value"] > 0, f"bench_sensors_torch: row {row}")
+    check(counts["sensors_rgbd"]["pose_lm"] >= 2 * N_SENSORS - 2
+          and counts["sensors_rgbd"]["patch_gather"] >= 2 * N_SENSORS,
+          f"bench_sensors_torch: launches {counts['sensors_rgbd']}")
+    # both kernels against their plain versions on what this path gave them
+    check(len(gathers) == 1 and solves, f"RGB-D row: {len(gathers)} gathers, {len(solves)} "
+                                        f"pose solves captured")
+    shapes = {"patch_gather": patch_compare(*gathers[0], "RGB-D row 376x240 frame 0")}
+    for n, (a, kw) in sorted(solves.items()):
+        eR, et, agree, _, rounds = pose_lm_compare(pose_optimize_best, a, f"RGB-D row N={n}", kw)
+        shapes[f"pose_lm_{n}"] = dict(n=n, valid=int(a[6].sum()), stereo=int((a[5] & a[6]).sum()),
+                                      dR=eR, dt=et, agreement=agree,
+                                      steps=[r["steps"] for r in rounds])
+        log(f"[tools] RGB-D row pose LM, first solve at N={n} ({shapes[f'pose_lm_{n}']['valid']} "
+            f"valid rows): |dR| {eR:.3g} |dt| {et:.3g} inlier agreement {agree:.4f}")
+    log(f"[tools] phase 11 in {time.perf_counter() - t_phase:.1f} s")
+    return counts, shapes
 
 
 def main():
@@ -1562,15 +1713,23 @@ def main():
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
     by_path.update(phase_cli(dev, smi, cli_images))
     by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
-    patch = records[0]
+    tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
+    by_path.update(tools)
+    patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
-    patch["max_abs_err"] = max([patch["max_abs_err"]]
+    patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
+    patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()])
+    lm["sensors_rgbd_shapes"] = rgbd_shapes
+    lm["max_abs_err"] = max([lm["max_abs_err"]]
+                            + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
                       "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
                       "mono_vi": N_VI, "fisheye_stereo": N_FISH, "cli": N_CLI,
-                      "cli_b": 2 * N_CLI}
+                      "cli_b": 2 * N_CLI, "level0_step": N_FRAMES - 1,
+                      "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
+                      "sensors_rgbd": 2 * N_SENSORS}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}

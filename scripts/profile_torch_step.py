@@ -1,17 +1,21 @@
-"""Profile the PyTorch port's fused stereo tracking step on one CUDA card.
+"""Profile the PyTorch port's fused stereo tracking step on one CUDA card,
+with each of its stereo SAD refinements (TrackingConfig.fused_sad
+"pyramid", the default, and "level0") in one run.
 
     python scripts/profile_torch_step.py [--frames 16] [--out build/profile]
 
 Same setup as chip_smoke.py (752x480 stereo rendered frames, 1024 ORB
 features, local map of P = 2048 rows from frame 0, pose chained on the
-device). Reports, per frame over the steady frames (the last --profiled of them
-traced by torch.profiler):
+device). Both modes track the same frames from the same local map; their
+timed passes alternate (pyramid, level0, level0, pyramid), so a drift of
+the card or the host falls on both. Reports, per mode and per frame over
+the steady frames (the last --profiled of them traced by torch.profiler):
   - host wall time of one step that ends in torch.cuda.synchronize();
   - the device's busy time (sum of CUDA kernel and memcpy/memset time in
     the torch.profiler trace) and its idle share of the wall time;
   - the number of kernel launches, and the kernels that take the most
     device time.
-Writes the Chrome trace and the full table under --out. Needs a card.
+Writes the Chrome traces and the full tables under --out. Needs a card.
 """
 
 import argparse
@@ -54,9 +58,12 @@ def main():
                             height=cs.H, width=cs.W, fx=cs.FX, fy=cs.FY)
     frames = [np.stack([cs.u8(seq.frame(i)), cs.u8(seq.frame(i, right=True))])
               for i in range(n)]
-    step = FusedTrackStep(Pinhole([cs.FX, cs.FY, seq.cx, seq.cy], cs.W, cs.H),
-                          OrbConfig(n_features=cs.N_FEATURES), TrackingConfig(),
-                          cs.N_LEVELS, cs.SCALE, cs.FX * cs.BASELINE, True, device=dev)
+    cam = Pinhole([cs.FX, cs.FY, seq.cx, seq.cy], cs.W, cs.H)
+    steps = {sad: FusedTrackStep(cam, OrbConfig(n_features=cs.N_FEATURES),
+                                 TrackingConfig(fused_sad=sad), cs.N_LEVELS, cs.SCALE,
+                                 cs.FX * cs.BASELINE, True, device=dev)
+             for sad in ("pyramid", "level0")}
+    step = steps["pyramid"]                  # one local map for both modes
     f0 = step.extract(torch.tensor(frames[0], device=dev))
     f0["und_xy"] = f0["xy"]
     local = stereo_local_map({k: v.cpu().numpy() for k, v in f0.items()}, cs.FX, cs.FY,
@@ -65,45 +72,52 @@ def main():
     inputs = [step_inputs_from_numpy(frames[i], *local, pose0, np.float32([60]), dev)
               for i in range(1, n)]
 
-    def run(frame_inputs, pose):
+    def run(sad, frame_inputs, pose):
         walls = []
         for inp in frame_inputs:
             t0 = time.perf_counter()
-            pose = step(*inp[:6], pose, inp[7])["pose"]
+            pose = steps[sad](*inp[:6], pose, inp[7])["pose"]
             torch.cuda.synchronize()
             walls.append((time.perf_counter() - t0) * 1e3)
         return walls, pose
 
-    _, pose = run(inputs[: args.warmup], inputs[0][6])
+    warm = {sad: run(sad, inputs[: args.warmup], inputs[0][6])[1] for sad in steps}
     steady = inputs[args.warmup:]
-    walls, _ = run(steady, pose)             # timed without the profiler
+    walls = {sad: [] for sad in steps}
+    for sad in ("pyramid", "level0", "level0", "pyramid"):   # timed without the profiler
+        walls[sad] += run(sad, steady, warm[sad])[0]
     traced = steady[-args.profiled:]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        prof_walls, _ = run(traced, pose)
-    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(traced)
-    n_kernels = len(events) / len(traced)
-    wall = float(np.median(walls))
     os.makedirs(args.out, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(args.out, "torch_step_trace.json"))
-    table = prof.key_averages().table(sort_by="device_time_total", row_limit=40)
-    with open(os.path.join(args.out, "torch_step_profile.txt"), "w") as f:
-        f.write(table)
-    top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:12]
-    print(table[:6000])
-    print(json.dumps({
-        "card": cs.nvidia_smi_line(),
-        "frames": len(steady),
-        "frames_profiled": len(traced),
-        "wall_ms_median": wall,
-        "wall_ms_p90": float(np.percentile(walls, 90)),
-        "wall_ms_median_profiled": float(np.median(prof_walls)),
-        "device_busy_ms_per_frame": busy_ms,
-        "device_idle_share": max(0.0, 1.0 - busy_ms / float(np.mean(prof_walls))),
-        "device_events_per_frame": n_kernels,
-        "top_device_ms_per_frame": {k.key[:60]: k.device_time_total / 1e3 / len(traced)
-                                    for k in top},
-    }))
+    rows = {}
+    for sad in steps:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_walls, _ = run(sad, traced, warm[sad])
+        events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy_ms = sum(e.time_range.elapsed_us() for e in events) / 1e3 / len(traced)
+        prof.export_chrome_trace(os.path.join(args.out, f"torch_step_{sad}_trace.json"))
+        table = prof.key_averages().table(sort_by="device_time_total", row_limit=40)
+        with open(os.path.join(args.out, f"torch_step_{sad}_profile.txt"), "w") as f:
+            f.write(table)
+        top = sorted(prof.key_averages(), key=lambda k: -k.device_time_total)[:12]
+        print(table[:3000])
+        rows[sad] = {
+            "card": cs.nvidia_smi_line(),
+            "sad": sad,
+            "frames": len(walls[sad]),
+            "frames_profiled": len(traced),
+            "wall_ms_median": float(np.median(walls[sad])),
+            "wall_ms_p90": float(np.percentile(walls[sad], 90)),
+            "wall_ms_median_profiled": float(np.median(prof_walls)),
+            "device_busy_ms_per_frame": busy_ms,
+            "device_idle_share": max(0.0, 1.0 - busy_ms / float(np.mean(prof_walls))),
+            "device_events_per_frame": len(events) / len(traced),
+            "top_device_ms_per_frame": {k.key[:60]: k.device_time_total / 1e3 / len(traced)
+                                        for k in top},
+        }
+        print(json.dumps(rows[sad]))
+    print(json.dumps({"level0_over_pyramid": {
+        k: rows["level0"][k] / rows["pyramid"][k]
+        for k in ("wall_ms_median", "device_busy_ms_per_frame", "device_events_per_frame")}}))
 
 
 if __name__ == "__main__":

@@ -7,7 +7,8 @@ imports no jax, so it also runs on a host that has none:
 Tolerances: the patch gather is a copy (bitwise); the pose LM sums in
 another order than the plain version (R 1e-4, t 1e-3, inliers >= 0.99)
 and repeats itself bitwise (fixed-order reductions); the fused step,
-stereo and mono, as in tests/test_torch_track_step.py.
+stereo (pyramid and level-0 SAD) and mono, as in
+tests/test_torch_track_step.py.
 """
 
 import numpy as np
@@ -130,12 +131,15 @@ def test_pose_kernel_matches_plain(cuda, n, stereo, n_rounds):
         assert torch.equal(a, b)
 
 
-def test_fused_step_kernels_match_plain(cuda, monkeypatch):
+def _stereo_step_against_plain(cuda, monkeypatch, sad):
+    """The stereo step with TrackingConfig(fused_sad=sad) on frame 1
+    through the kernels (2 patch-gather and 4 pose-LM launches) against the
+    same step with the kernels' plain versions."""
     seq = SyntheticSequence(n_frames=3, fps=20, speed=0.5, baseline=0.11)
     u8 = lambda im: np.clip(np.round(im), 0, 255).astype(np.uint8)  # noqa: E731
     frames = [np.stack([u8(seq.frame(i)), u8(seq.frame(i, right=True))]) for i in range(3)]
     step = FusedTrackStep(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], 376, 240),
-                          OrbConfig(n_features=500), TrackingConfig(), 8, 1.2,
+                          OrbConfig(n_features=500), TrackingConfig(fused_sad=sad), 8, 1.2,
                           seq.fx * seq.baseline, True, device=cuda)
     f0 = step.extract(torch.tensor(frames[0], device=cuda))
     f0["und_xy"] = f0["xy"]
@@ -154,6 +158,15 @@ def test_fused_step_kernels_match_plain(cuda, monkeypatch):
     assert (out["pose"][9:12] - ref["pose"][9:12]).abs().max() <= 5e-3
     assert (out["assoc"] == ref["assoc"]).float().mean() >= 0.95
     assert int(out["pose"][12]) >= 100
+
+
+def test_fused_step_kernels_match_plain(cuda, monkeypatch):
+    _stereo_step_against_plain(cuda, monkeypatch, "pyramid")
+
+
+def test_level0_fused_step_kernels_match_plain(cuda, monkeypatch):
+    """fused_sad="level0": the level-0 SAD refinement, the same kernels."""
+    _stereo_step_against_plain(cuda, monkeypatch, "level0")
 
 
 def test_mono_fused_step_kernels_match_plain(cuda, monkeypatch):
@@ -190,6 +203,30 @@ def test_mono_fused_step_kernels_match_plain(cuda, monkeypatch):
         assert int(out["pose"][12]) >= 100
         pose = out["pose"].cpu().numpy()
 
+
+
+@pytest.mark.parametrize("case", ["regular", "singular", "inf"])
+def test_anchor_marginalization_on_the_card(cuda, case):
+    """pose_inertial_solve's prior on the card: a singular or non-finite
+    anchor block gives a non-finite prior, never an exception (tpuslam's
+    jnp.linalg.solve raises nothing); a regular one the CPU's result."""
+    from tpuslam_torch.solve.pose_inertial import _marginalize_anchor
+
+    rng = np.random.RandomState(0)
+    M = rng.randn(30, 30)
+    H = M @ M.T + np.eye(30)
+    if case == "singular":
+        H[:15, :15] = np.eye(15)
+        H[0, 1] = H[1, 0] = 1.0 + 1e-6
+    if case == "inf":
+        H[3, 3] = np.inf
+    for dtype in (torch.float64, torch.float32):
+        got = _marginalize_anchor(torch.tensor(H, dtype=dtype, device=cuda)).cpu()
+        if case == "regular":
+            want = _marginalize_anchor(torch.tensor(H, dtype=dtype))
+            assert torch.allclose(got, want, rtol=1e-4 if dtype == torch.float32 else 1e-9)
+        else:
+            assert not bool(torch.isfinite(got).all())
 
 def test_host_pose_route_matches_plain(cuda):
     """The host tracker's route (pose_opt_dispatch): f64 inputs cast to f32,

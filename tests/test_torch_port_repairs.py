@@ -1,13 +1,18 @@
 """The port stands alone and runs on the card by default.
 
   * No module of tpuslam_torch, and nothing in chip_smoke.py,
-    bench_dist_torch.py or scripts/make_synth_euroc_torch.py, imports
-    tpuslam or jax, nor what the card host lacks: cv2, yaml, matplotlib,
-    PIL (a subprocess with all of them blocked imports them all).
+    bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
+    bench_frontend_torch.py and the scripts/*_torch.py files, imports
+    tpuslam or jax, nor what the
+    card host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of
+    them blocked imports them all).
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
     parallel/async_mapping, the native map core) behave as tpuslam's do.
+  * A matrix that torch.linalg cannot factorize gives NaN results, as in
+    jnp.linalg, and raises nothing (core/linalg.inv, solve, svd, eigh and
+    the sites that call them).
 """
 
 import os
@@ -44,8 +49,13 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke
 import bench_dist_torch
-spec = importlib.util.spec_from_file_location("synth", "scripts/make_synth_euroc_torch.py")
-spec.loader.exec_module(importlib.util.module_from_spec(spec))
+import bench_torch
+import bench_sensors_torch
+import bench_frontend_torch
+for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torch.py",
+               "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py"):
+    spec = importlib.util.spec_from_file_location("script", script)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))
 loaded = {k for k, v in sys.modules.items() if v is not None}
 assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
 assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
@@ -291,3 +301,84 @@ def test_native_indices_match_tpuslam():
         assert np.array_equal(a, b)
     for kf in range(8):
         assert porti.score(kf, q, qw) == refi.score(kf, q, qw)
+
+
+# ------------------------------------------- linalg failures as in jnp.linalg
+def _bad_batch(kind, symmetric):
+    """A batch of three 3x3 matrices; the middle one singular (kind
+    'singular') or with a NaN entry ('nan')."""
+    A = np.random.RandomState(7).randn(3, 3, 3) + 3 * np.eye(3)
+    A = A @ np.swapaxes(A, -1, -2) if symmetric else A
+    if kind == "singular":
+        A[1] = [[1.0, 2.0, 3.0], [2.0, 4.0, 6.0], [1.0, 0.0, 1.0]]
+    else:
+        A[1, 1, 2] = A[1, 2, 1] = np.nan
+    return A
+
+
+@pytest.mark.parametrize("fn,kind", [("inv", "singular"), ("solve", "singular"), ("svd", "nan"),
+                                     ("eigh", "nan")])
+def test_linalg_failure_gives_nan_as_jnp(fn, kind):
+    """The middle matrix of the batch cannot be factorized: torch.linalg
+    raises on it, the port's helper gives NaN there as jnp.linalg does, and
+    the other entries agree with jnp.linalg within 1e-10."""
+    import jax.numpy as jnp
+
+    from tpuslam_torch.core import linalg
+
+    A = _bad_batch(kind, fn == "eigh")
+    B = np.random.RandomState(8).randn(3, 3, 2)
+    args, jargs = (A, B) if fn == "solve" else (A,), (jnp.asarray(A), jnp.asarray(B))
+    jargs = jargs if fn == "solve" else jargs[:1]
+    with pytest.raises(torch.linalg.LinAlgError):
+        getattr(torch.linalg, fn)(*(torch.tensor(a) for a in args))
+    got = getattr(linalg, fn)(*(torch.tensor(a) for a in args))
+    want = getattr(jnp.linalg, fn)(*jargs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    # the factor that is unique: values, or singular / eigen-values
+    pick = {"inv": 0, "solve": 0, "svd": 1, "eigh": 0}[fn]
+    g, w = got[pick].numpy(), np.asarray(want[pick])
+    assert not np.isfinite(w[1]).all() and np.isnan(g[1]).all()
+    np.testing.assert_allclose(g[[0, 2]], w[[0, 2]], rtol=1e-10, atol=1e-10)
+
+
+def test_linalg_sites_give_nan_as_tpuslam():
+    """Sites that raised on such a matrix now follow tpuslam: a homography
+    hypothesis that cannot be inverted scores as in tpuslam's _score_h; a
+    NaN rotation, point set or PnP problem gives NaN (normalize_rotation,
+    horn_sim3, dlt_pose) where tpuslam's does."""
+    import jax.numpy as jnp
+
+    from tpuslam.core import lie as JL
+    from tpuslam.ops import twoview as JTV
+    from tpuslam.solve import pnp as JPNP
+    from tpuslam.solve import sim3 as JSIM3
+    from tpuslam_torch.core import lie as TL
+    from tpuslam_torch.ops import twoview as TTV
+    from tpuslam_torch.solve import pnp as TPNP
+    from tpuslam_torch.solve import sim3 as TSIM3
+
+    rng = np.random.RandomState(9)
+    H = np.stack([np.eye(3) + 0.01 * rng.randn(3, 3), np.zeros((3, 3))])
+    x1 = rng.rand(20, 2) * 100
+    x2 = x1 + rng.randn(20, 2) * 0.5
+    valid = np.ones(20, bool)
+    got = TTV._score_h(torch.tensor(H), torch.tensor(x1), torch.tensor(x2), 1.0,
+                       torch.tensor(valid))
+    want = JTV._score_h(jnp.asarray(H), jnp.asarray(x1), jnp.asarray(x2), 1.0,
+                        jnp.asarray(valid))
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), rtol=1e-9)
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+
+    R = np.full((3, 3), np.nan)
+    X = rng.randn(12, 3)
+    X[3, 1] = np.nan
+    xy = rng.rand(12, 2)
+    for got, want in ((TL.normalize_rotation(torch.tensor(R)), JL.normalize_rotation(R)),
+                      (TSIM3.horn_sim3(torch.tensor(X), torch.tensor(X + 1.0))[1],
+                       JSIM3.horn_sim3(jnp.asarray(X), jnp.asarray(X + 1.0))[1]),
+                      (TPNP.dlt_pose(torch.tensor(X), torch.tensor(xy))[0],
+                       JPNP.dlt_pose(jnp.asarray(X), jnp.asarray(xy))[0])):
+        assert not np.isfinite(np.asarray(want)).all()
+        assert not np.isfinite(got.numpy()).all()

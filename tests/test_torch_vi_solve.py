@@ -21,6 +21,8 @@
     PCG): R and t within 1e-9, pitch and roll untouched, the loop closed.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -177,6 +179,106 @@ def test_pose_inertial_f32_matches_tpuslam_f32(rng):
     np.testing.assert_allclose(to[2], jo[2], atol=2e-2)
     assert (to[5] == jo[5]).mean() > 0.97
     np.testing.assert_allclose(to[1], d["p"][1], atol=5e-3)
+
+
+def _j_marginalize(H):
+    """tpuslam's anchor marginalization (tpuslam/solve/pose_inertial.py:254-261)."""
+    import jax
+
+    H = jnp.asarray(H)
+    d11 = jnp.diagonal(H[:15, :15])
+    good = (d11 > 0) & jnp.isfinite(d11)
+    s11 = jnp.where(good, jax.lax.rsqrt(jnp.where(good, d11, 1.0)), 1.0)
+    A = H[:15, :15] * s11[:, None] * s11[None, :] + 1e-6 * jnp.eye(15, dtype=H.dtype)
+    B12 = s11[:, None] * H[:15, 15:]
+    H15 = H[15:, 15:] - B12.T @ jnp.linalg.solve(A, B12)
+    return np.asarray(0.5 * (H15 + H15.T))
+
+
+@pytest.mark.parametrize("case", ["regular", "singular"])
+def test_anchor_marginalization_matches_tpuslam(rng, case):
+    """The frame's prior from the [30, 30] Hessian: within 1e-12 relative of
+    tpuslam's on a regular Hessian; on one whose scaled anchor block is
+    exactly singular (rows 0 and 1 equal), where torch.linalg.solve raises,
+    non-finite as tpuslam's jnp.linalg.solve leaves it (no exception: a
+    singular block on the card stopped a mono-inertial run)."""
+    M = rng.randn(30, 30)
+    H = M @ M.T + np.eye(30)
+    if case == "singular":
+        H[:15, :15] = np.eye(15)                  # unit diagonal: the Jacobi scale is 1
+        H[0, 1] = H[1, 0] = 1.0 + 1e-6            # = the damped diagonal
+        A = T(H[:15, :15]) + 1e-6 * torch.eye(15, dtype=torch.float64)
+        with pytest.raises(torch.linalg.LinAlgError):
+            torch.linalg.solve(A, T(H[:15, 15:]))
+    got = TPI._marginalize_anchor(T(H)).numpy()
+    want = _j_marginalize(H)
+    if case == "singular":
+        assert not np.isfinite(want).all() and not np.isfinite(got).all()
+    else:
+        close(got, want, 1e-12, "H15")
+
+
+@pytest.mark.parametrize("dtype", ["f32", "f64"])
+def test_so3_log_of_a_symmetric_near_identity(dtype):
+    """R^T R of a rotation shrunk by 1e-6 (not orthonormal to f32
+    precision) is symmetric, so sin theta = 0 while cos theta < 1 - 1e-7:
+    tpuslam's so3_log gives NaN there (theta / sin theta = 0 / 0). The
+    port's takes the Taylor branch: its log (0) and its forward Jacobian
+    (along a rotation increment) are finite, and it equals tpuslam's
+    within 1e-6 on the rotation itself."""
+    from tpuslam_torch.core import lie as TL
+
+    R = np.asarray(JL.so3_exp(jnp.asarray([0.4, -0.3, 0.2], jnp.float64))) * (1.0 - 1e-6)
+    M = R.T @ R
+    td, jd = (torch.float32, jnp.float32) if dtype == "f32" else (torch.float64, jnp.float64)
+    assert not np.isfinite(np.asarray(JL.so3_log(jnp.asarray(M, jd)))).all()
+    Mt = torch.tensor(M, dtype=td)
+    w = TL.so3_log(Mt)
+    jac = torch.func.jacfwd(lambda e: TL.so3_log(Mt @ (torch.eye(3, dtype=td) + TL.hat(e))))(
+        torch.zeros(3, dtype=td))
+    assert torch.isfinite(w).all() and float(w.abs().max()) < 1e-6
+    assert torch.isfinite(jac).all()
+    close(TL.so3_log(torch.tensor(R / (1.0 - 1e-6), dtype=td)).numpy(),
+          np.asarray(JL.so3_log(jnp.asarray(R / (1.0 - 1e-6), jd))), 1e-6, "so3_log")
+
+
+def _card_solve_inputs(array):
+    """The keyframe-anchored pose_inertial_solve call whose prior came out
+    non-finite on the card: bench_sensors_torch.py's mono-inertial row,
+    pass 0, frame 28, saved by scripts/vi_prior_witness_torch.py (f32;
+    the preintegration dict is argument 15)."""
+    z = np.load(os.path.join(os.path.dirname(__file__), "data", "vi_kf_anchor_card.npz"))
+    args, pre = [None] * 35, {}
+    for k in z.files:
+        if not k.startswith("c0/a"):
+            continue
+        name = k.split("/")[1][1:]
+        if "." in name:
+            i, key = name.split(".")
+            pre[key] = array(z[k])
+            args[int(i)] = pre
+        else:
+            args[int(name)] = array(z[k]) if z[k].ndim else z[k].item()
+    return args
+
+
+def test_kf_anchored_solve_from_the_card_gives_a_finite_prior():
+    """The keyframe's rotation R1 was not orthonormal to f32 precision
+    (R1^T R1 - I ~ 2e-6), so the prior residual so3_log(R1^T R1) was NaN:
+    the anchor block of the Hessian turned NaN (NaN * the zero mask of the
+    fixed anchor), torch.linalg.solve raised on it (F4), and tpuslam's
+    solve on these inputs returns its start state unmoved and a NaN prior
+    that the next frame's solve inherits. The port's solve moves the state
+    and gives a finite, symmetric prior."""
+    jargs = _card_solve_inputs(jnp.asarray)
+    jout = JPI.pose_inertial_solve(*jargs)
+    assert not np.isfinite(np.asarray(jout[6])).all()
+    assert np.array_equal(np.asarray(jout[1]), np.asarray(jargs[6]))
+    args = _card_solve_inputs(torch.tensor)
+    out = TPI.pose_inertial_solve(*args)
+    assert all(bool(torch.isfinite(x).all()) for x in out[:5] + (out[6],))
+    assert torch.equal(out[6], out[6].T) and float((out[1] - args[6]).abs().max()) > 1e-6
+    assert int(out[7]) > 150
 
 
 # ------------------------------------------------------------------- VI BA

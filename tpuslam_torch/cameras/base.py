@@ -10,7 +10,8 @@ import numpy as np
 
 
 class CameraModel:
-    """Base: subclasses implement project / project_np / unproject."""
+    """Base: subclasses implement project / project_np / unproject /
+    project_jac."""
 
     kind = "base"
 
@@ -59,4 +60,8 @@ class CameraModel:
 
     def unproject(self, uv):
         """[...,2] pixels -> [...,3] unit-depth rays (z=1 normalized)."""
+        raise NotImplementedError
+
+    def project_jac(self, Xc):
+        """d(uv)/d(Xc): [...,2,3]."""
         raise NotImplementedError

@@ -123,3 +123,6 @@ class KannalaBrandt8(CameraModel):
 
     def unproject(self, uv, iters: int = 10):
         return kb8_unproject(self.full_params, uv, iters)
+
+    def project_jac(self, Xc):
+        return kb8_jac(self.full_params, Xc)

@@ -42,6 +42,15 @@ class Pinhole(CameraModel):
         y = (uv[..., 1] - self.cy) / self.fy
         return torch.stack([x, y, torch.ones_like(x)], dim=-1)
 
+    def project_jac(self, Xc):
+        x, y, z = Xc[..., 0], Xc[..., 1], Xc[..., 2]
+        inv_z = 1.0 / torch.where(torch.abs(z) < 1e-9, 1e-9, z)
+        inv_z2 = inv_z * inv_z
+        zeros = torch.zeros_like(x)
+        row0 = torch.stack([self.fx * inv_z, zeros, -self.fx * x * inv_z2], dim=-1)
+        row1 = torch.stack([zeros, self.fy * inv_z, -self.fy * y * inv_z2], dim=-1)
+        return torch.stack([row0, row1], dim=-2)
+
     def has_distortion(self):
         return bool(np.any(self.dist != 0))
 
@@ -68,4 +77,15 @@ class Pinhole(CameraModel):
             xy = xy + (tgt - self.distort_normalized(xy))
         return torch.stack(
             [self.fx * xy[..., 0] + self.cx, self.fy * xy[..., 1] + self.cy], dim=-1
+        )
+
+    def distort_points(self, uv):
+        """Ideal pixels -> distorted pixels."""
+        if not self.has_distortion():
+            return uv
+        xy = torch.stack([(uv[..., 0] - self.cx) / self.fx, (uv[..., 1] - self.cy) / self.fy],
+                         dim=-1)
+        d = self.distort_normalized(xy)
+        return torch.stack(
+            [self.fx * d[..., 0] + self.cx, self.fy * d[..., 1] + self.cy], dim=-1
         )

@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from . import linalg
+
 _EPS = 1e-8
 
 
@@ -73,6 +75,30 @@ def so3_right_jacobian(w):
     return _eye_like(W) - b[..., None, None] * W + c[..., None, None] * W2
 
 
+def so3_right_jacobian_inv(w):
+    """Inverse right Jacobian of SO(3) (ref: InverseRightJacobianSO3,
+    ImuTypes.h:276): I + W/2 + c W^2, c = 1/t^2 - (1 + cos t)/(2 t sin t)."""
+    theta2 = (w * w).sum(dim=-1)
+    W = hat(w)
+    W2 = W @ W
+    small = theta2 < _EPS
+    safe_t2 = _where(small, 1.0, theta2)
+    theta = torch.sqrt(safe_t2)
+    c = _where(small, 1.0 / 12.0 + theta2 / 720.0,
+               1.0 / safe_t2 - (1.0 + torch.cos(theta)) / (2.0 * theta * torch.sin(theta) + 1e-30))
+    return _eye_like(W) + 0.5 * W + c[..., None, None] * W2
+
+
+def normalize_rotation(R):
+    """Project a near-rotation onto SO(3) through its SVD
+    (ref: NormalizeRotation, ImuTypes.h:278)."""
+    U, _, Vh = linalg.svd(R)
+    det = torch.linalg.det(U @ Vh)
+    fix = torch.cat([torch.ones(R.shape[:-2] + (2,), dtype=R.dtype, device=R.device),
+                     det[..., None]], dim=-1)
+    return (U * fix[..., None, :]) @ Vh
+
+
 def se3_exp(xi):
     """exp: se(3) [...,6] (rho, phi) -> (R, t), t = V(phi) @ rho."""
     rho, phi = xi[..., :3], xi[..., 3:]
@@ -108,7 +134,11 @@ def so3_log(R):
     cos_t = torch.clamp((tr - 1.0) * 0.5, -1.0, 1.0)
     w_skew = vee(R - R.transpose(-1, -2)) * 0.5            # = sin(theta) * axis
     s2 = (w_skew * w_skew).sum(dim=-1)                     # = sin^2 theta
-    small = cos_t > 1.0 - 1e-7
+    # a symmetric near-identity matrix (R^T R of a rotation that is not
+    # orthonormal to f32 precision) has sin theta = 0 with cos theta < 1:
+    # it takes the Taylor branch too, where tpuslam's theta / sin theta is
+    # 0 / 0 and its log and Jacobian are NaN
+    small = (cos_t > 1.0 - 1e-7) | ((s2 < 1e-12) & (cos_t > 0.0))
     near_pi = cos_t < -1.0 + 5e-7
     s2_safe = _where(small | near_pi, 1.0, s2)
     sin_t = torch.sqrt(s2_safe)
@@ -165,6 +195,22 @@ def se3_inverse(R, t):
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb): apply b, then a."""
     return Ra @ Rb, _mv(Ra, tb) + ta
+
+
+def se3_apply(R, t, X):
+    """Transform points X [...,3]."""
+    return _mv(R, X) + t
+
+
+def se3_matrix(R, t):
+    """Pack (R, t) into 4x4 homogeneous matrices."""
+    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=R.dtype, device=R.device)
+    top = torch.cat([R, t[..., :, None]], dim=-1)
+    return torch.cat([top, bottom.expand(R.shape[:-2] + (1, 4))], dim=-2)
+
+
+def se3_from_matrix(T):
+    return T[..., :3, :3], T[..., :3, 3]
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +274,20 @@ def sim3_log(s, R, t):
     """log: Sim(3) -> [...,7] (rho, phi, sigma); the inverse of sim3_exp."""
     phi = so3_log(R)
     sigma = torch.log(s)
-    rho = torch.linalg.solve(_sim3_W(phi, sigma), t[..., None])[..., 0]
+    rho = linalg.solve(_sim3_W(phi, sigma), t[..., None])[..., 0]
     return torch.cat([rho, phi, sigma[..., None]], dim=-1)
+
+
+def quat_to_rot(q):
+    """Quaternion [...,4] (x, y, z, w: TUM trajectory order) -> rotation
+    matrix; q need not be unit."""
+    q = q / torch.linalg.norm(q, dim=-1, keepdim=True)
+    x, y, z, w = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack([
+        torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - z * w), 2 * (x * z + y * w)], -1),
+        torch.stack([2 * (x * y + z * w), 1 - 2 * (x * x + z * z), 2 * (y * z - x * w)], -1),
+        torch.stack([2 * (x * z - y * w), 2 * (y * z + x * w), 1 - 2 * (x * x + y * y)], -1),
+    ], dim=-2)
 
 
 def rot_to_quat(R):

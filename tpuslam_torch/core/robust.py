@@ -30,3 +30,8 @@ def huber_cost(chi2, delta2):
     delta = _sqrt(delta2)
     e = torch.sqrt(torch.clamp(chi2, min=0.0))
     return torch.where(chi2 <= delta2, chi2, 2.0 * delta * e - delta2)
+
+
+def cauchy_weight(chi2, delta2):
+    """IRLS weight 1 / (1 + e2 / delta2) of the Cauchy kernel."""
+    return 1.0 / (1.0 + chi2 / delta2)

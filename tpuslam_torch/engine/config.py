@@ -61,7 +61,8 @@ class TrackingConfig:
     nn_ratio_local: float = 0.8
     nn_ratio_triangulate: float = 0.6
     # fused step: local-map re-association passes and the stereo SAD mode
-    # ("pyramid" = per-octave reference semantics; "level0" is not ported)
+    # ("pyramid" = per-octave reference semantics, "level0" = single-level
+    # gathers, cheaper)
     fused_passes: int = 3
     fused_sad: str = "pyramid"
     # pipelined fused tracking (frame t dispatched before t-1 is fetched)

@@ -36,7 +36,7 @@ from ..engine.config import OrbConfig, TrackingConfig
 from ..ops import match as M
 from ..ops.hamming import hamming_matrix
 from ..ops.orb import OrbExtractor
-from ..ops.stereo import sad_refine_pyramid, stereo_match
+from ..ops.stereo import sad_refine, sad_refine_pyramid, stereo_match
 from ..solve.pose_opt_cuda import pose_optimize_fused
 from ..utils import DEFAULT_DEVICE, resolve_device
 from ..utils.pad import bucket, pad_to
@@ -65,8 +65,8 @@ class FusedTrackStep(nn.Module):
                  n_levels: int, scale: float, bf: float, stereo: bool,
                  n_passes: int = 3, device=DEFAULT_DEVICE):
         super().__init__()
-        if tcfg.fused_sad != "pyramid":
-            raise NotImplementedError("only fused_sad='pyramid' is ported")
+        if tcfg.fused_sad not in ("pyramid", "level0"):
+            raise ValueError(f"fused_sad must be 'pyramid' or 'level0', not {tcfg.fused_sad!r}")
         self.camera = camera
         self.tcfg = tcfg
         self.n_levels = n_levels
@@ -98,9 +98,12 @@ class FusedTrackStep(nn.Module):
         u_r, disp, ok = stereo_match(
             fl["bits"], fr["bits"], fl["xy"], fr["xy"], fl["octave"], fr["octave"],
             fl["valid"], fr["valid"], self.sf, 0.3, self.camera.fx)
-        u_r, sadv, ok = sad_refine_pyramid(
-            imgs[0], imgs[1], fl["xy"], fl["octave"], u_r, ok,
-            n_levels=self.n_levels, scale=self.scale)
+        if self.tcfg.fused_sad == "pyramid":
+            u_r, sadv, ok = sad_refine_pyramid(
+                imgs[0], imgs[1], fl["xy"], fl["octave"], u_r, ok,
+                n_levels=self.n_levels, scale=self.scale)
+        else:  # level-0 SAD: one gather shape for every octave
+            u_r, sadv, ok = sad_refine(imgs[0], imgs[1], fl["xy"], u_r, ok)
         # median-SAD outlier filter (ref Frame.cc:931-975): masked median
         # over the ok set, th = 1.5 * 1.4 * median
         big = torch.where(ok, sadv, float("inf"))

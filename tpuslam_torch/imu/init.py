@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..core.lie import so3_exp, so3_log
-from ..core.linalg import spd_solve
+from ..core.linalg import inv, spd_solve
 from .preintegration import GRAVITY, corrected_delta
 
 
@@ -169,7 +169,7 @@ def inertial_init_solve(Rwb, p, v0, edges_a, edges_b, pre_stack, info9, prior_g:
     df = torch.diagonal(Hf)
     goodf = (df > 0) & torch.isfinite(df)
     sf = torch.where(goodf, torch.rsqrt(torch.where(goodf, df, 1.0)), 1.0)
-    cov_n = torch.linalg.inv(Hf * sf[:, None] * sf[None, :] + 1e-9 * eyeD)
+    cov_n = inv(Hf * sf[:, None] * sf[None, :] + 1e-9 * eyeD)
     logs_var = cov_n[2, 2] * sf[2] * sf[2]
     phi = torch.cat([theta[0:2], torch.zeros_like(theta[:1])])
     s_fin = torch.exp(theta[2]) if mono_scale else torch.ones_like(theta[2])

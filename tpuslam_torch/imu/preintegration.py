@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core.lie import hat, so3_exp, so3_log, so3_right_jacobian
+from ..core.linalg import inv
 
 GRAVITY = 9.81  # ref: ImuTypes.h:40 GRAVITY_VALUE
 
@@ -206,7 +207,7 @@ def information_from_cov(C9, eps=None):
     good = (d > 0) & torch.isfinite(d)
     s = torch.where(good, torch.rsqrt(torch.where(good, d, 1.0)), 1.0)
     eye = torch.eye(9, dtype=dtype, device=C9.device)
-    In = torch.linalg.inv(Cs * s[..., :, None] * s[..., None, :] + eps * eye)
+    In = inv(Cs * s[..., :, None] * s[..., None, :] + eps * eye)
     In = 0.5 * (In + _T(In))
     return In * s[..., :, None] * s[..., None, :]
 

@@ -31,3 +31,8 @@ def hamming_packed(pa, pb):
     """pa [N,8] u32, pb [M,8] u32 -> [N,M] int32 via XOR + popcount."""
     x = pa.to(torch.int64)[:, None, :] ^ pb.to(torch.int64)[None, :, :]
     return popcount_u32(x).sum(dim=-1, dtype=torch.int32)
+
+
+def hamming_pairs(bits_a, bits_b):
+    """Rowwise distance of aligned pairs: [N,256], [N,256] -> [N] int32."""
+    return (bits_a != bits_b).sum(dim=-1, dtype=torch.int32)

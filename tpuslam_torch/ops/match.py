@@ -106,6 +106,25 @@ def level_mask(pred_level, octave_b, lo_off: int = 0, hi_off: int = 1):
     return (ob >= pl - lo_off) & (ob <= pl + hi_off)
 
 
+def epipolar_mask(xy_b, F12_lines, octave_b, level_sigma2, threshold: float = 3.84):
+    """Squared distance of kp_b to the epipolar line of kp_a under F12
+    within threshold * sigma2[octave_b]. F12_lines [N,3] = (a, b, c) per
+    a-feature, xy_b [M,2] -> [N,M] (ref: CheckDistEpipolarLine
+    ORBmatcher.cc:229, 3.84 = chi2 1 dof)."""
+    num = (F12_lines[:, None, 0] * xy_b[None, :, 0] + F12_lines[:, None, 1] * xy_b[None, :, 1]
+           + F12_lines[:, None, 2])
+    den2 = F12_lines[:, 0] ** 2 + F12_lines[:, 1] ** 2
+    d2 = num * num / torch.clamp(den2[:, None], min=1e-12)
+    sigma2 = torch.as_tensor(level_sigma2, dtype=d2.dtype, device=d2.device)[octave_b.long()]
+    return d2 < threshold * sigma2[None, :]
+
+
+def node_mask(nodes_a, nodes_b):
+    """BoW FeatureVector alignment: the same vocabulary node id
+    (ref: SearchByBoW node-aligned loops ORBmatcher.cc:289-297)."""
+    return nodes_a[:, None] == nodes_b[None, :]
+
+
 def match(bits_a, bits_b, mask, max_dist: int = TH_LOW, nn_ratio: float | None = None,
           ang_a=None, ang_b=None, one_to_one: bool = True, oct_b=None,
           ratio_same_octave: bool = False):
@@ -171,3 +190,12 @@ def level_mask_np(pred_level, octave_b, lo_off=0, hi_off=1):
     pl = np.asarray(pred_level)[:, None]
     ob = np.asarray(octave_b)[None, :]
     return (ob >= pl - lo_off) & (ob <= pl + hi_off)
+
+
+def epipolar_mask_np(xy_b, lines, octave_b, level_sigma2, threshold=3.84):
+    num = (lines[:, None, 0] * xy_b[None, :, 0] + lines[:, None, 1] * xy_b[None, :, 1]
+           + lines[:, None, 2])
+    den2 = lines[:, 0] ** 2 + lines[:, 1] ** 2
+    d2 = num * num / np.maximum(den2[:, None], 1e-12)
+    sigma2 = np.asarray(level_sigma2)[np.asarray(octave_b)]
+    return d2 < threshold * sigma2[None, :]

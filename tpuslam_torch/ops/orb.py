@@ -148,9 +148,10 @@ class OrbExtractor(nn.Module):
     """ORB extraction for one config. Buffers: the Gaussian taps, the IC
     masks and the bf16-rounded descriptor LUT.
 
-    forward(img [H,W]) -> dict: xy [N,2] f32 level-0 pixel coords; resp [N];
-    angle [N] rad; octave [N] i32; size [N]; valid [N] bool;
-    bits [N,256] u8; packed [N,8] u32.  N == cfg.n_features.
+    forward(img [H,W], ini_th=None, min_th=None) -> dict: xy [N,2] f32
+    level-0 pixel coords; resp [N]; angle [N] rad; octave [N] i32; size [N];
+    valid [N] bool; bits [N,256] u8; packed [N,8] u32.  N == cfg.n_features.
+    The FAST thresholds default to the config's.
     """
 
     def __init__(self, cfg: OrbConfig, device):
@@ -163,8 +164,10 @@ class OrbExtractor(nn.Module):
         self.register_buffer("desc_lut", torch.tensor(_DESC_LUT, **kw).to(
             torch.bfloat16).float())
 
-    def forward(self, img):
+    def forward(self, img, ini_th=None, min_th=None):
         cfg = self.cfg
+        ini_th = float(cfg.ini_th if ini_th is None else ini_th)
+        min_th = float(cfg.min_th if min_th is None else min_th)
         levels = build_pyramid(img.float(), cfg.n_levels, cfg.scale)
         budgets = cfg.level_budgets()
         out = {"xy": [], "resp": [], "octave": [], "size": []}
@@ -172,7 +175,7 @@ class OrbExtractor(nn.Module):
         # per level: FAST, cell gate, NMS, selection, blur and pad
         for l, (im, budget, sc) in enumerate(zip(levels, budgets, cfg.level_scales())):
             score = fast_score(im)
-            score = cell_threshold_gate(score, cfg.ini_th, cfg.min_th, cell=cfg.th_cell)
+            score = cell_threshold_gate(score, ini_th, min_th, cell=cfg.th_cell)
             score = nms3x3(score)
             # keep keypoints whose descriptor patch fits (margin 16)
             h, w = im.shape
@@ -201,3 +204,8 @@ class OrbExtractor(nn.Module):
         res["valid"] = res["resp"] > 0
         res["packed"] = pack_bits(res["bits"])
         return res
+
+    def extract_pair(self, img_l, img_r, ini_th=None, min_th=None):
+        """Both images of a stereo pair (tpuslam's batched call): (out_l,
+        out_r) with the fields of forward, one patch-gather launch each."""
+        return self(img_l, ini_th, min_th), self(img_r, ini_th, min_th)

@@ -1,10 +1,7 @@
-"""Rectified stereo matching: row-banded Hamming + per-octave image-SAD
-refinement, and the RGB-D virtual stereo (port of tpuslam/ops/stereo.py;
-ref: Frame::ComputeStereoMatches, src/Frame.cc:802-981, and
-Frame::ComputeStereoFromRGBD :983).
-
-The level-0 SAD variant (`sad_refine`, the `fused_sad="level0"` option)
-is not ported yet.
+"""Rectified stereo matching: row-banded Hamming + per-octave (or level-0)
+image-SAD refinement, and the RGB-D virtual stereo (port of
+tpuslam/ops/stereo.py; ref: Frame::ComputeStereoMatches,
+src/Frame.cc:802-981, and Frame::ComputeStereoFromRGBD :983).
 """
 
 from __future__ import annotations
@@ -42,6 +39,59 @@ def stereo_match(bits_l, bits_r, xy_l, xy_r, oct_l, oct_r, valid_l, valid_r,
     u_r = xy_r[j, 0]
     d = xy_l[:, 0] - u_r
     return u_r, d, (best <= TH_HIGH) & (d > 1e-3)
+
+
+def _parabola(sad, L: int):
+    """Best offset of the [N, 2L+1] SAD rows and its parabola fit over the
+    two neighbours: (best SAD, clamped best index, sub-pixel delta, good)
+    with good = interior best, |delta| <= 1, convex basin."""
+    best = torch.argmin(sad, dim=1)
+    d2 = sad.gather(1, best[:, None])[:, 0]
+    interior = (best > 0) & (best < 2 * L)
+    bi = torch.clamp(best, 1, 2 * L - 1)
+    d1 = sad.gather(1, (bi - 1)[:, None])[:, 0]
+    d3 = sad.gather(1, (bi + 1)[:, None])[:, 0]
+    denom = d1 + d3 - 2.0 * d2
+    delta = torch.where(torch.abs(denom) > 1e-9,
+                        (d1 - d3) / (2.0 * torch.clamp(denom, min=1e-9)), 0.0)
+    return d2, bi, delta, interior & (torch.abs(delta) <= 1.0) & (denom > 0)
+
+
+def sad_refine(img_l, img_r, xy_l, u_r0, ok, w: int = 5, L: int = 5):
+    """Image-SAD sub-pixel refinement on the level-0 images (the
+    `fused_sad="level0"` option; ref Frame.cc:869-930): the 11x11
+    center-normalized patch around the rounded left keypoint is slid +-L
+    pixels along the right row; the best SAD and a parabola over its
+    neighbours give the sub-pixel u_r. Every octave is refined on level 0
+    (the reference gathers from the feature's level), so the right patches
+    are one [N, 2L+1, 2w+1, 2w+1] gather.
+
+    Matches whose best offset is on the search border or whose parabola
+    leaves [-1, 1] are rejected and keep u_r0. The left coordinate's
+    fractional part is added back, so u_r matches x itself, not its
+    rounded pixel (the reference keeps that +-0.5 px quantization).
+    Returns (u_r [N], best_sad [N], ok [N]).
+    """
+    H, W = img_l.shape
+    dtype = img_l.dtype
+    dev = img_l.device
+    r = torch.arange(-w, w + 1, device=dev)
+    dy, dx = r[:, None], r[None, :]
+    ui = torch.round(xy_l[:, 0]).long()
+    vi = torch.round(xy_l[:, 1]).long()
+    iy = torch.clamp(vi[:, None, None] + dy[None], 0, H - 1)
+    pl = img_l[iy, torch.clamp(ui[:, None, None] + dx[None], 0, W - 1)]   # [N,P,P]
+    pl = pl - pl[:, w:w + 1, w:w + 1]
+    ur0 = torch.round(u_r0).long()
+    offs = torch.arange(-L, L + 1, device=dev)
+    ixr = torch.clamp(ur0[:, None, None, None] + offs[None, :, None, None]
+                      + dx[None, None], 0, W - 1)        # [N,2L+1,P,P]
+    pr = img_r[iy[:, None], ixr]
+    pr = pr - pr[:, :, w:w + 1, w:w + 1]
+    d2, bi, delta, good = _parabola(torch.abs(pl[:, None] - pr).sum(dim=(-2, -1)), L)
+    good = ok & good
+    u_r = (ur0.to(dtype) + (bi - L).to(dtype) + delta + (xy_l[:, 0] - ui.to(dtype)))
+    return torch.where(good, u_r, u_r0), d2, good
 
 
 def sad_refine_pyramid(img_l, img_r, xy_l, octave, u_r0, ok,
@@ -93,17 +143,8 @@ def sad_refine_pyramid(img_l, img_r, xy_l, octave, u_r0, ok,
                       + dx[None, None], 0, Wm - 1)        # [N,2L+1,P,P]
     pr = pyr_r[o3[:, None], iy[:, None], ixr]
     pr = pr - pr[:, :, w:w + 1, w:w + 1]
-    sad = torch.abs(pl[:, None] - pr).sum(dim=(-2, -1))  # [N,2L+1]
-    best = torch.argmin(sad, dim=1)
-    d2 = sad.gather(1, best[:, None])[:, 0]
-    interior = (best > 0) & (best < 2 * L)
-    bi = torch.clamp(best, 1, 2 * L - 1)
-    d1 = sad.gather(1, (bi - 1)[:, None])[:, 0]
-    d3 = sad.gather(1, (bi + 1)[:, None])[:, 0]
-    denom = d1 + d3 - 2.0 * d2
-    delta = torch.where(torch.abs(denom) > 1e-9,
-                        (d1 - d3) / (2.0 * torch.clamp(denom, min=1e-9)), 0.0)
-    good = ok & inside & interior & (torch.abs(delta) <= 1.0) & (denom > 0)
+    d2, bi, delta, good = _parabola(torch.abs(pl[:, None] - pr).sum(dim=(-2, -1)), L)
+    good = ok & inside & good
     # add back the left center's sub-level offset (x - sf*ui): the SAD
     # localizes the match of the rounded level center
     u_r = (sf * (ur0.to(dtype) + (bi - L).to(dtype) + delta)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from ..core.linalg import spd_solve
+from ..core.linalg import inv, spd_solve, svd
 
 N_HYP = 200  # ref: TwoViewReconstruction ctor mMaxIterations=200
 SIGMA = 1.0
@@ -50,7 +50,7 @@ def _dlt_h(x1, x2, w=None):
     A = torch.cat([r1, r2], dim=1)  # [B,2n,9]
     if w is not None:
         A = A * torch.cat([w, w], dim=1)[..., None]
-    _, _, Vt = torch.linalg.svd(A, full_matrices=True)
+    _, _, Vt = svd(A, full_matrices=True)
     return Vt[..., -1, :].reshape(B, 3, 3)
 
 
@@ -63,9 +63,9 @@ def _dlt_f(x1, x2, w=None):
     A = torch.stack([up * u, up * v, up, vp * u, vp * v, vp, u, v, o], -1)
     if w is not None:
         A = A * w[..., None]
-    _, _, Vt = torch.linalg.svd(A, full_matrices=True)
+    _, _, Vt = svd(A, full_matrices=True)
     F = Vt[..., -1, :].reshape(B, 3, 3)
-    U, S, Vt2 = torch.linalg.svd(F)
+    U, S, Vt2 = svd(F)
     S = torch.cat([S[..., :2], torch.zeros_like(S[..., 2:])], -1)
     return U @ (S[..., :, None] * Vt2)
 
@@ -81,7 +81,7 @@ def _score_h(H, x1, x2, sigma2, valid):
         w = torch.where(torch.abs(p[..., 2:3]) < 1e-9, 1e-9, p[..., 2:3])
         return ((p[..., :2] / w - b) ** 2).sum(-1)
 
-    Hinv = torch.linalg.inv(H)
+    Hinv = inv(H)
     d12 = transfer(H, x1[None], x2[None]) / sigma2
     d21 = transfer(Hinv, x2[None], x1[None]) / sigma2
     th = 5.991
@@ -118,7 +118,7 @@ def triangulate_batch(R1, t1, R2, t2, x1, x2, n_refine: int = 2):
         rows.append(x[..., 0:1] * P[2][None] - P[0][None])
         rows.append(x[..., 1:2] * P[2][None] - P[1][None])
     A = torch.stack(rows, dim=-2)  # [N,4,4]
-    _, _, Vt = torch.linalg.svd(A)
+    _, _, Vt = svd(A)
     Xh = Vt[..., -1, :]
     w = torch.where(torch.abs(Xh[..., 3:]) < 1e-12, 1e-12, Xh[..., 3:])
     X = Xh[..., :3] / w
@@ -172,7 +172,7 @@ def _check_rt(R, t, x1, x2, good, sigma2):
 
 def _decompose_e(E):
     """E -> 4 (R, t) hypotheses (ref DecomposeE)."""
-    U, _, Vt = torch.linalg.svd(E)
+    U, _, Vt = svd(E)
     U = U * torch.sign(torch.linalg.det(U))
     Vt = Vt * torch.sign(torch.linalg.det(Vt))
     W = torch.tensor([[0.0, -1, 0], [1, 0, 0], [0, 0, 1]], dtype=E.dtype, device=E.device)
@@ -185,7 +185,7 @@ def _decompose_e(E):
 
 def _decompose_h(H):
     """H -> 8 (R, t) hypotheses, Faugeras' SVD method (ref ReconstructH)."""
-    U, S, Vt = torch.linalg.svd(H)
+    U, S, Vt = svd(H)
     s = torch.linalg.det(U) * torch.linalg.det(Vt)
     d1, d2, d3 = S[0], S[1], S[2]
     d1, d3 = d1 / d2, d3 / d2

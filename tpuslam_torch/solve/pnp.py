@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.linalg import eigh, svd
+
 
 def draw_samples(n_valid: int, n_hyp: int, generator=None):
     """[n_hyp, 6] positions among the valid rows, uniform with
@@ -34,11 +36,11 @@ def dlt_pose(X, xy):
         return torch.cat([a * X, a * ones, b * X, b * ones, c * X, c * ones], -1)
 
     A = torch.cat([row(ones, zeros, -u), row(zeros, ones, -v)], -2)  # [...,2n,12]
-    _, vecs = torch.linalg.eigh(A.transpose(-1, -2) @ A)
+    _, vecs = eigh(A.transpose(-1, -2) @ A)
     P = vecs[..., 0].reshape(vecs.shape[:-2] + (3, 4))               # smallest eigenvalue
     sign = torch.where(torch.linalg.det(P[..., :3]) < 0, -1.0, 1.0)
     P = P * sign[..., None, None]
-    U, S, Vt = torch.linalg.svd(P[..., :3])
+    U, S, Vt = svd(P[..., :3])
     scale = S.mean(-1)
     detR = torch.linalg.det(U @ Vt)
     fix = torch.cat([torch.ones(detR.shape + (2,), dtype=X.dtype, device=X.device),

@@ -23,7 +23,7 @@ import torch
 
 from ..core.lie import (se3_compose, se3_inverse, se3_log, sim3_compose, sim3_exp,
                         sim3_inverse, sim3_log)
-from ..core.linalg import spd_solve
+from ..core.linalg import inv, spd_solve
 from ..utils import DEFAULT_DEVICE, resolve_device
 
 
@@ -41,7 +41,7 @@ def _graph_pcg(Hd, Bij, ei, ej, b, free, n_cg: int):
     fmask = free.to(b.dtype)
     eye = torch.eye(D, dtype=b.dtype, device=b.device)
     Hdm = Hd * fmask[:, :, None] * fmask[:, None, :] + (1.0 - fmask)[:, :, None] * eye[None]
-    Minv = torch.linalg.inv(Hdm + 1e-8 * eye[None])
+    Minv = inv(Hdm + 1e-8 * eye[None])
 
     def matvec(x):
         y = torch.einsum("kij,kj->ki", Hdm, x)

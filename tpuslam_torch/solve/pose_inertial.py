@@ -26,7 +26,7 @@ from __future__ import annotations
 import torch
 
 from ..core.lie import hat, so3_exp, so3_log
-from ..core.linalg import spd_solve
+from ..core.linalg import solve, spd_solve
 from ..core.robust import huber_cost, huber_weight
 from .inertial_ba import _batch_of_one, _edge_residual_of_eps, edge_residual_and_jacobians
 from .reproj import PINHOLE, cam_residual
@@ -181,17 +181,23 @@ def pose_inertial_solve(R1, p1, v1, bg1, ba1, R2, p2, v2, bg2, ba2, X, uvr, inv_
                                          Rcb, tcb, fx, fy, cx, cy, bf, cm, cs, False, cam,
                                          is_right)
         use = valid & (chi2 <= torch.where(stereo, cs, cm).to(dtype)) & (z > 0)
-    # final Hessian over the inliers (non-robust) -> marginalize the anchor,
-    # Jacobi-scaled before factorizing (the anchor block mixes fx^2-scale
-    # and bias-prior-scale entries; the reference runs in double)
+    # final Hessian over the inliers (non-robust) -> marginalize the anchor
     H, _ = build(state, use, CHI2_MONO_SCHED[-1], CHI2_STEREO_SCHED[-1], False)
-    H = H * (freeF[:, None] * freeF[None, :])
+    H15 = _marginalize_anchor(H * (freeF[:, None] * freeF[None, :]))
+    return state[5], state[6], state[7], state[8], state[9], use, H15, use.sum()
+
+
+def _marginalize_anchor(H):
+    """The frame's 15 x 15 prior from the [30, 30] Hessian: the Schur
+    complement of the anchor block, Jacobi-scaled before factorizing (the
+    anchor block mixes fx^2-scale and bias-prior-scale entries; the
+    reference runs in double). Where the scaled block is singular, the
+    prior is NaN, as jnp.linalg.solve's result is in tpuslam."""
     H11 = H[:15, :15]
     d11 = torch.diagonal(H11)
     good = (d11 > 0) & torch.isfinite(d11)
     s11 = torch.where(good, torch.rsqrt(torch.where(good, d11, 1.0)), 1.0)
-    A = H11 * s11[:, None] * s11[None, :] + 1e-6 * torch.eye(15, dtype=dtype, device=dev)
+    A = H11 * s11[:, None] * s11[None, :] + 1e-6 * torch.eye(15, dtype=H.dtype, device=H.device)
     B12 = s11[:, None] * H[:15, 15:]
-    H15 = H[15:, 15:] - B12.T @ torch.linalg.solve(A, B12)
-    H15 = 0.5 * (H15 + H15.T)
-    return state[5], state[6], state[7], state[8], state[9], use, H15, use.sum()
+    H15 = H[15:, 15:] - B12.T @ solve(A, B12)
+    return 0.5 * (H15 + H15.T)

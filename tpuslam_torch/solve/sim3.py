@@ -15,7 +15,7 @@ import torch
 
 from ..cameras.kb8 import kb8_project
 from ..core.lie import so3_exp
-from ..core.linalg import spd_solve
+from ..core.linalg import spd_solve, svd
 
 
 def draw_samples(n_valid: int, n_hyp: int, generator=None):
@@ -32,7 +32,7 @@ def horn_sim3(X1, X2, fix_scale: bool = False):
     c2 = X2.mean(-2, keepdim=True)
     d1, d2 = X1 - c1, X2 - c2
     M = torch.einsum("...ni,...nj->...ij", d2, d1)   # maps 1 -> 2
-    U, _, Vt = torch.linalg.svd(M)
+    U, _, Vt = svd(M)
     det = torch.linalg.det(U @ Vt)
     fix = torch.cat([torch.ones(det.shape + (2,), dtype=X1.dtype, device=X1.device),
                      det[..., None]], -1)
