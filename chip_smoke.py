@@ -4,8 +4,8 @@
 
 Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
 levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
-mono-inertial, fisheye stereo, the dataset CLI, the distributed BA and the
-measuring tools.
+mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
+distributed BA, the measuring tools and stereo-inertial.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -63,6 +63,14 @@ Phases, each raising on failure:
      frames before the init take the host path (pose-LM launches), frames
      after it the fused visual-inertial step: 1 patch-gather and 4 pose-LM
      launches, then pose_inertial_solve (its calls per frame counted);
+     (b) the same run on the same renders with async_mapping=True (the
+     mapper, IMU init and VI BAs on the worker thread) under the bounded
+     back-pressure of tests/test_async_mapping.py (at most 2 s waiting for
+     the queue to fall to 2 keyframes), then flush() and shutdown():
+     tpuslam's async gates (IMU initialized, OK, scaled ATE under 8 cm),
+     no worker errors, at least one async handshake
+     (Tracker._sync_imu_from_map) that rebased the last frame, both
+     kernels launched;
   8. fisheye stereo: System(camera2=, Tlr=).track_stereo at TUM-VI's
      512x512 over 40 frames at 20 fps (0.5 m/s) rendered by the port's
      Kannala-Brandt renderer from seed 0, the rig of
@@ -131,12 +139,30 @@ Phases, each raising on failure:
      patch gather, K = 700 over 8 levels of 376x240, and the first host
      pose solve at each padded row count) held against the plain versions:
      the gather bitwise, the pose LM with phase 2's tolerances.
+ 12. stereo-inertial: System.track_stereo(..., imu=) on an IMU_STEREO
+     System over 55 frames of the heave sequence (tests/torch_vi_heave.py:
+     vi_excite plus a 0.10 m vertical heave at 4 rad/s, which passes the
+     stereo-inertial init gate; 10 fps, 0.5 m/s, IMU at 200 Hz) at 752x480
+     with the phase constants' rig (fx = fy = 458, baseline 0.11 m),
+     phase 7's ImuCalib and radii, f32 solvers: the stereo init on the
+     gate, the IMU init in the mapper, then the fused visual-inertial step.
+     It must end OK with the IMU initialized, an unscaled ATE under 5 cm, a
+     Horn scale within 3 % of 1, |R[2, 2]| > 0.99, a median keyframe-
+     velocity error under 0.2 m/s and no mapper errors; every frame makes
+     exactly 2 patch-gather launches, host frames before the IMU init
+     launch the pose LM, and every fused visual-inertial frame makes 4
+     pose-LM launches and one pose_inertial_solve. A frame after the init
+     that falls back to the host path is counted and printed; at least one
+     must take the fused step. The 4 pose-LM calls of the first fused VI
+     frame are kept and held against the plain version (phase 2's
+     tolerances), and the last (4 rounds) timed as in phase 2.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
 level0_step, frontend_chain, graft_entry, bench_system and
-sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes), the
-nvidia-smi line
+sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes; phase 7
+(b) as mono_vi_async, phase 12 as stereo_vi with its first fused frame's
+pose-LM calls as stereo_vi_shapes), the nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -192,6 +218,8 @@ DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's ru
 N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
 N_BENCH = 40           # phase 11 (c): bench_torch's frames (a warm pass and one timed)
 N_SENSORS = 20         # phase 11 (d): bench_sensors_torch's RGB-D frames (two passes)
+N_STEREO_VI = 55       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
+RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
 def log(*a):
@@ -279,6 +307,25 @@ def pose_lm_ops(rounds, n_valid):
     return ops
 
 
+def pose_lm_bytes(n):
+    """Bytes one pose LM solve over n rows must move: X, uvr, inv_sigma2 and
+    the two masks in, the pose in and out, the inlier flags and chi2 out."""
+    return n * (3 * 4 + 3 * 4 + 4 + 1 + 1) + 2 * (9 + 3) * 4 + n * (1 + 4)
+
+
+def pose_lm_times(wrapper, kernel, plain):
+    """(host-inclusive ms of wrapper(), device-only ms of kernel(), ms of
+    plain()), medians over the turns kernel, plain, plain, kernel."""
+    t = {"kernel": [], "plain": []}
+    for what in ("kernel", "plain", "plain", "kernel"):
+        if what == "kernel":
+            t["kernel"].append((median_ms(wrapper), device_ms(kernel)))
+        else:
+            t["plain"].append(median_ms(plain, n=10))
+    return (float(np.median([x[0] for x in t["kernel"]])),
+            float(np.median([x[1] for x in t["kernel"]])), float(np.median(t["plain"])))
+
+
 def window_bytes(levels, corners, size):
     """Bytes of level pixels that the size x size windows at `corners` cover
     (their union on each level, read once)."""
@@ -298,6 +345,35 @@ def window_bytes(levels, corners, size):
 
 def u8(im):
     return np.clip(np.round(im), 0, 255).astype(np.uint8)
+
+
+def _render_part(seq, idx, kind):
+    """Frames idx of seq, rendered in a worker process: uint8 images,
+    uint8 stereo pairs ("stereo") or (uint8 image, depth) ("rgbd")."""
+    if kind == "rgbd":
+        return [(u8(img), depth) for img, depth in (seq.frame_rgbd(i) for i in idx)]
+    if kind == "stereo":
+        return [(u8(seq.frame(i)), u8(seq.frame(i, right=True))) for i in idx]
+    return [u8(seq.frame(i)) for i in idx]
+
+
+def render(seq, n, kind="mono"):
+    """Frames 0..n-1 of seq (see _render_part), in order. The renderer is
+    numpy on the host, one frame at a time, so RENDER_WORKERS spawned
+    processes share the frames; all of them end before this returns."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    parts = [range(w, n, RENDER_WORKERS) for w in range(RENDER_WORKERS)]
+    with ProcessPoolExecutor(RENDER_WORKERS,
+                             mp_context=multiprocessing.get_context("spawn")) as pool:
+        done = list(pool.map(_render_part, [seq] * RENDER_WORKERS, parts,
+                             [kind] * RENDER_WORKERS))
+    frames = [None] * n
+    for part, got in zip(parts, done):
+        for i, frame in zip(part, got):
+            frames[i] = frame
+    return frames
 
 
 def check(cond, msg):
@@ -416,7 +492,8 @@ def pose_lm_compare(solve, args, what, kw=None):
     out = solve(*args, **(kw or {}))
     check(pose_opt_cuda.counter.launches == before + 1, f"pose LM {what}: the solve did not launch")
     rounds = []
-    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32, rounds=rounds)
+    plain_kw = {k: v for k, v in (kw or {}).items() if k == "n_rounds"}
+    Rp, tp, ip, _ = pose_opt_cuda.pose_optimize_plain(*args32, rounds=rounds, **plain_kw)
     torch.cuda.synchronize()
     Rk, tk, ik, ck = out
     eR = float((Rk - Rp).abs().max())
@@ -424,7 +501,7 @@ def pose_lm_compare(solve, args, what, kw=None):
     agree = float((ik == ip).float().mean())
     check(eR <= 1e-4 and et <= 1e-3 and agree >= 0.99,
           f"pose LM {what}: kernel vs plain out of tolerance (|dR| {eR}, |dt| {et}, {agree})")
-    check(not bool(ik[int(args[6].sum()):].any()), f"pose LM {what}: a padded row is an inlier")
+    check(not bool(ik[~args[6]].any()), f"pose LM {what}: an invalid row is an inlier")
     check(bool(torch.isfinite(ck).all()), f"pose LM {what}: non-finite chi2")
     return eR, et, agree, out, rounds
 
@@ -491,23 +568,15 @@ def phase_kernels(dev, seq):
         worst = max(worst, eR, et)
         fused = lambda: pose_opt_cuda.pose_optimize_fused(*args32)  # noqa: E731
         wrapper = (lambda: pose_optimize_best(*args)) if host else fused
-        t = {"kernel": [], "plain": []}
-        for what in ("kernel", "plain", "plain", "kernel"):
-            if what == "kernel":
-                t["kernel"].append((median_ms(wrapper), device_ms(fused)))
-            else:
-                t["plain"].append(median_ms(lambda: pose_opt_cuda.pose_optimize_plain(*args32),
-                                            n=10))
-        host_ms = float(np.median([x[0] for x in t["kernel"]]))
-        dev_ms = float(np.median([x[1] for x in t["kernel"]]))
-        plain_ms = float(np.median(t["plain"]))
+        host_ms, dev_ms, plain_ms = pose_lm_times(
+            wrapper, fused, lambda: pose_opt_cuda.pose_optimize_plain(*args32))
         n = args[2].shape[0]
         st = args[5] & args[6]
         n_valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
         steps = [r["steps"] for r in rounds]
         in_use = [(r["mono"], r["stereo"]) for r in rounds]
         n_flops = pose_lm_ops(rounds, n_valid_by)
-        n_bytes = n * (3 * 4 + 3 * 4 + 4 + 1 + 1) + 2 * (9 + 3) * 4 + n * (1 + 4)
+        n_bytes = pose_lm_bytes(n)
         b_ms, b_by, b_res = bound(n_bytes, n_flops)
         shape_rec[name] = dict(n=n, valid=n_valid_by, ms=host_ms, device_ms=dev_ms,
                                plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, rounds=rounds,
@@ -766,8 +835,9 @@ def render_loop():
     """The N_LOOP frames of loop_sequence() (phases 5 and 10)."""
     seq = loop_sequence()
     t0 = time.perf_counter()
-    frames = [u8(seq.frame(i)) for i in range(N_LOOP)]
-    log(f"[mono_loop] rendered {N_LOOP} frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host)")
+    frames = render(seq, N_LOOP)
+    log(f"[mono_loop] rendered {N_LOOP} frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host, "
+        f"{RENDER_WORKERS} processes)")
     return frames
 
 
@@ -1018,10 +1088,9 @@ def phase_rgbd(dev, smi):
 
     seq = SyntheticSequence(n_frames=N_RGBD, fps=10, speed=0.5, height=H, width=W, fx=FX, fy=FY)
     t0 = time.perf_counter()
-    frames = [seq.frame_rgbd(i) for i in range(N_RGBD)]
-    frames = [(u8(img), depth) for img, depth in frames]
+    frames = render(seq, N_RGBD, "rgbd")
     log(f"[rgbd] rendered {N_RGBD} image + depth frames {W}x{H} in "
-        f"{time.perf_counter() - t0:.1f} s (host)")
+        f"{time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
     cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
                      tracking=TrackingConfig(min_stereo_init_features=200))
     slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.RGBD,
@@ -1062,63 +1131,137 @@ def phase_rgbd(dev, smi):
     return launches
 
 
-def phase_mono_vi(dev, smi):
-    """System.track_monocular(..., imu=) on an IMU_MONOCULAR System over the
-    sequence of tests/test_e2e_mono_inertial.py at full width; returns the
-    launch counts."""
+def render_mono_vi():
+    """Phase 7's sequence (tests/test_e2e_mono_inertial.py's at full width):
+    the sequence, its frames and each frame's IMU samples."""
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+
+    seq = SyntheticSequence(n_frames=N_VI, fps=10, speed=0.5, imu_rate=200.0, kind="vi_excite",
+                            height=H, width=W, fx=FX, fy=FY)
+    t0 = time.perf_counter()
+    frames = render(seq, N_VI)
+    times = seq.timestamps()
+    imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
+                    for i in range(1, N_VI)]
+    log(f"[mono_vi] rendered {N_VI} frames {W}x{H} and {sum(len(x) for x in imu[1:])} IMU "
+        f"samples in {time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
+    return seq, frames, imu
+
+
+def vi_config():
+    """The VI tests' configuration (a keyframe at least every 3 frames),
+    their pixel radii (the motion-model radius and the two-view init window,
+    defaults there) scaled by the width ratio."""
+    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+
+    base = TrackingConfig()
+    return SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
+                      tracking=TrackingConfig(max_frames_between_kf=3,
+                                              motion_model_radius=base.motion_model_radius * W
+                                              / 376.0,
+                                              init_window=base.init_window * W / 376.0))
+
+
+def vi_counts():
+    """Kernel launches, then the tracker's timed stages: one "pose_inertial"
+    sample per pose-inertial solve (plain torch), the fused VI step and the
+    host path."""
+    from tpuslam_torch.ops import patch_cuda
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    return (patch_cuda.counter.launches, pose_opt_cuda.counter.launches,
+            *(len(GLOBAL_TIMER.samples.get(s, []))
+              for s in ("pose_inertial", "track_fused_vi", "track")))
+
+
+def count_rebases(tracker):
+    """Wrap tracker._sync_imu_from_map to count the handshakes that rebased
+    the last frame (a new pose from the map's last keyframe); returns the
+    counter, a one-entry list."""
+    real, n = tracker._sync_imu_from_map, [0]
+
+    def counted():
+        last = tracker.last_frame
+        before = None if last is None else last.R
+        real()
+        if last is not None and last.R is not None and last.R is not before:
+            n[0] += 1
+
+    tracker._sync_imu_from_map = counted
+    return n
+
+
+def vi_run_summary(name, slam, rows, wall, smi):
+    """Print the per-frame launch summary of a VI run; returns (fused VI
+    frames, VI frames that fell back to the host path, host-path frames
+    before the IMU init)."""
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    fused = [r for r in rows if r["fused_vi"] and not r["host"]]
+    fallback = [i for i, r in enumerate(rows) if r["initialized"] and r["host"]]
+    host_pre = [r for r in rows if not r["initialized"] and r["host"]]
+    steady = np.array(wall[WARMUP:])
+    log(f"[{name}] track wall ms over frames {WARMUP}..{len(wall) - 1}: median "
+        f"{np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max {steady.max():.3f}; "
+        f"card {smi}")
+    stage_table(name, GLOBAL_TIMER)
+    log(f"[{name}] launches {counts_now()}; fused VI frames {len(fused)} (patch gather "
+        f"{sorted(set(r['patch'] for r in fused))}, pose LM {sorted(set(r['pose'] for r in fused))}"
+        f" per frame), pose_inertial_solve calls per fused VI frame "
+        f"{sorted(set(r['vi_solves'] for r in fused))}, per frame after the init "
+        f"{np.mean([r['vi_solves'] for r in rows if r['initialized']] or [0.0]):.3f}; frames "
+        f"after the init that fell back to the host path {len(fallback)} {fallback}; host-path "
+        f"frames before the init {len(host_pre)}, pose LM launches there "
+        f"{sum(r['pose'] for r in host_pre)}")
+    return fused, fallback, host_pre
+
+
+def phase_mono_vi(dev, smi, data, async_mapping=False):
+    """Phase 7: System.track_monocular(..., imu=) on an IMU_MONOCULAR System
+    over phase 7's sequence (render_mono_vi); (b) with async_mapping, the
+    mapper on its worker thread under tests/test_async_mapping.py's bounded
+    back-pressure, then flush() and shutdown(). Returns the launch counts."""
     import torch
 
     from tpuslam_torch.cameras import Pinhole
-    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.eval.ate import horn_align
     from tpuslam_torch.imu.preintegration import ImuCalib
-    from tpuslam_torch.io.synthetic import SyntheticSequence
-    from tpuslam_torch.ops import patch_cuda
-    from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
-    seq = SyntheticSequence(n_frames=N_VI, fps=10, speed=0.5, imu_rate=200.0, kind="vi_excite",
-                            height=H, width=W, fx=FX, fy=FY)
-    t0 = time.perf_counter()
-    frames = [u8(seq.frame(i)) for i in range(N_VI)]
+    name = "mono_vi_async" if async_mapping else "mono_vi"
+    seq, frames, imu = data
     times = seq.timestamps()
-    imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
-                    for i in range(1, N_VI)]
-    log(f"[mono_vi] rendered {N_VI} frames {W}x{H} and {sum(len(x) for x in imu[1:])} IMU "
-        f"samples in {time.perf_counter() - t0:.1f} s (host)")
-    # the test's configuration, its pixel radii (the motion-model radius and
-    # the two-view init window, defaults there) scaled by the width ratio
-    base = TrackingConfig()
-    cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES),
-                     tracking=TrackingConfig(max_frames_between_kf=3,
-                                             motion_model_radius=base.motion_model_radius * W
-                                             / 376.0,
-                                             init_window=base.init_window * W / 376.0))
-    slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.IMU_MONOCULAR,
-                  imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate), device=dev)
+    slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), vi_config(),
+                  sensor=Sensor.IMU_MONOCULAR, imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate),
+                  async_mapping=async_mapping, device=dev)
+    rebases = count_rebases(slam.tracker)
     GLOBAL_TIMER.samples.clear()
     reset_counts()
-    wall, rows = [], []
-
-    def counts():
-        # kernel launches, then the tracker's timed stages: one
-        # "pose_inertial" sample per pose-inertial solve (plain torch)
-        return (patch_cuda.counter.launches, pose_opt_cuda.counter.launches,
-                *(len(GLOBAL_TIMER.samples.get(s, []))
-                  for s in ("pose_inertial", "track_fused_vi", "track")))
-
+    wall, rows, waits = [], [], []
     for i in range(N_VI):
-        before = counts()
+        if async_mapping:
+            # bounded back-pressure (tests/test_async_mapping.py): at most
+            # 2 s waiting for the worker's queue to fall to 2 keyframes
+            t1 = time.perf_counter()
+            while slam.async_mapper.queue.qsize() > 2 and time.perf_counter() - t1 < 2.0:
+                time.sleep(0.02)
+            waits.append(time.perf_counter() - t1)
+        before = vi_counts()
         initialized = slam.map.imu_initialized
         t1 = time.perf_counter()
         slam.track_monocular(frames[i], times[i], imu=imu[i])
         wall.append((time.perf_counter() - t1) * 1e3)
         rows.append(dict(initialized=initialized,
                          **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
-                                    (a - b for a, b in zip(counts(), before))))))
+                                    (a - b for a, b in zip(vi_counts(), before))))))
+    errors = []
+    if async_mapping:
+        slam.async_mapper.flush(raise_errors=False)
+        errors = list(slam.async_mapper.errors)
     slam.shutdown()
     torch.cuda.synchronize()
     launches = counts_now()
@@ -1130,39 +1273,173 @@ def phase_mono_vi(dev, smi):
     R, _, s, _ = horn_align(est, gt, True)
     vel_err = float(np.median([np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
                                for k in m.valid_kf_ids()]))
-    steady = np.array(wall[WARMUP:])
-    fused = [r for r in rows if r["fused_vi"] and not r["host"]]
-    host_pre = [r for r in rows if not r["initialized"] and r["host"]]
     init_frame = next((i for i, r in enumerate(rows[1:], 1) if r["initialized"]), -1) - 1
-    log(f"[mono_vi] state {slam.get_tracking_state().name}, IMU initialized "
+    log(f"[{name}] state {slam.get_tracking_state().name}, IMU initialized "
         f"{m.imu_initialized} (after frame {init_frame}), {len(m.valid_kf_ids())} KFs, "
         f"{int(m.mp_valid[: m.n_mp].sum())} map points, {len(traj)} trajectory rows, Horn scale "
         f"{scale:.5f}, scaled ATE {rmse * 100:.3f} cm, |R[2,2]| {abs(R[2, 2]):.6f}, median "
-        f"KF velocity error {vel_err:.4f} m/s")
-    log(f"[mono_vi] track_monocular wall ms over frames {WARMUP}..{N_VI - 1}: median "
-        f"{np.median(steady):.3f}, p90 {np.percentile(steady, 90):.3f}, max {steady.max():.3f}; "
-        f"card {smi}")
-    stage_table("mono_vi", GLOBAL_TIMER)
-    log(f"[mono_vi] launches {launches}; fused VI frames {len(fused)} (patch gather "
-        f"{sorted(set(r['patch'] for r in fused))}, pose LM {sorted(set(r['pose'] for r in fused))}"
-        f" per frame), pose_inertial_solve calls per fused VI frame "
-        f"{sorted(set(r['vi_solves'] for r in fused))}, per frame after the init "
-        f"{np.mean([r['vi_solves'] for r in rows if r['initialized']] or [0.0]):.3f}; host-path "
-        f"frames before the init {len(host_pre)}, pose LM launches there "
-        f"{sum(r['pose'] for r in host_pre)}")
-    check(m.imu_initialized, "mono_vi: the IMU never initialized")
-    check(slam.get_tracking_state() == State.OK, "mono_vi: final state not OK")
-    check(len(traj) >= N_VI - 10 and np.isfinite(est).all(), "mono_vi: trajectory")
-    check(abs(scale - 1.0) < 0.4 and rmse < 0.06, f"mono_vi: Horn scale {scale}, ATE {rmse}")
-    check(abs(R[2, 2]) > 0.99, f"mono_vi: not gravity-aligned, R[2,2] {R[2, 2]}")
-    check(vel_err < 0.2, f"mono_vi: median KF velocity error {vel_err}")
-    check(slam.async_mapper is None or not slam.async_mapper.errors, "mono_vi: mapper errors")
-    check(len(fused) >= 1, "mono_vi: no frame took the fused visual-inertial step")
+        f"KF velocity error {vel_err:.4f} m/s; handshake rebases {rebases[0]}"
+        + (f"; worker errors {errors}, back-pressure waits {sum(waits):.2f} s in all"
+           if async_mapping else ""))
+    fused, _, host_pre = vi_run_summary(name, slam, rows, wall, smi)
+    check(m.imu_initialized, f"{name}: the IMU never initialized")
+    check(slam.get_tracking_state() == State.OK, f"{name}: final state not OK")
+    check(len(traj) >= N_VI - 10 and np.isfinite(est).all(), f"{name}: trajectory")
+    check(not errors, f"{name}: mapper errors {errors}")
+    if async_mapping:
+        # tests/test_async_mapping.py::test_async_mono_inertial_quality's gates
+        check(rmse < 0.08, f"{name}: scaled ATE {rmse}")
+        check(rebases[0] >= 1, f"{name}: no handshake rebased the last frame")
+        check(min(launches.values()) > 0, f"{name}: a kernel was never launched: {launches}")
+        return launches
+    check(abs(scale - 1.0) < 0.4 and rmse < 0.06, f"{name}: Horn scale {scale}, ATE {rmse}")
+    check(abs(R[2, 2]) > 0.99, f"{name}: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(vel_err < 0.2, f"{name}: median KF velocity error {vel_err}")
+    check(len(fused) >= 1, f"{name}: no frame took the fused visual-inertial step")
     check(all(r["patch"] == 1 and r["pose"] == 4 and r["vi_solves"] >= 1 for r in fused),
-          "mono_vi: a fused VI frame did not make 1 patch-gather and 4 pose-LM launches and a "
-          "pose-inertial solve")
-    check(sum(r["pose"] for r in host_pre) > 0, "mono_vi: no pose LM on the host path before init")
+          f"{name}: a fused VI frame did not make 1 patch-gather and 4 pose-LM launches and a "
+          f"pose-inertial solve")
+    check(sum(r["pose"] for r in host_pre) > 0,
+          f"{name}: no pose LM on the host path before init")
     return launches
+
+
+def phase_stereo_vi(dev, smi):
+    """Phase 12: System.track_stereo(..., imu=) on an IMU_STEREO System over
+    the heave sequence (tests/torch_vi_heave.py) at full width; the pose-LM
+    kernel's inputs on the first fused visual-inertial frame are held
+    against its plain version and timed. Returns the launch counts and the
+    pose LM's record on those inputs."""
+    import torch
+
+    from tpuslam_torch.cameras import Pinhole
+    from tpuslam_torch.engine import track_device
+    from tpuslam_torch.engine.system import Sensor, System
+    from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
+    from tpuslam_torch.eval.ate import horn_align
+    from tpuslam_torch.imu.preintegration import ImuCalib
+    from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_vi_heave import heave_sequence
+
+    t_phase = time.perf_counter()
+    seq = heave_sequence(n_frames=N_STEREO_VI, fps=10, speed=0.5, imu_rate=200.0,
+                         baseline=BASELINE, height=H, width=W, fx=FX, fy=FY)
+    frames = render(seq, N_STEREO_VI, "stereo")
+    times = seq.timestamps()
+    imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
+                    for i in range(1, N_STEREO_VI)]
+    log(f"[stereo_vi] rendered {N_STEREO_VI} stereo frames {W}x{H} of the heave sequence and "
+        f"{sum(len(x) for x in imu[1:])} IMU samples in {time.perf_counter() - t_phase:.1f} s "
+        f"(host, {RENDER_WORKERS} processes)")
+    slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), vi_config(),
+                  sensor=Sensor.IMU_STEREO, imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate),
+                  bf=FX * BASELINE, device=dev)
+    # the fused step's pose-LM calls of each frame; those of the first fused
+    # visual-inertial frame are kept
+    calls, captured, real_lm = [], [], track_device.pose_optimize_fused
+
+    def capture_lm(*a, **kw):
+        if not captured:
+            calls.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
+        return real_lm(*a, **kw)
+
+    track_device.pose_optimize_fused = capture_lm
+    GLOBAL_TIMER.samples.clear()
+    reset_counts()
+    wall, rows = [], []
+    try:
+        for i in range(N_STEREO_VI):
+            before = vi_counts()
+            initialized = slam.map.imu_initialized
+            calls.clear()
+            t1 = time.perf_counter()
+            slam.track_stereo(*frames[i], times[i], imu=imu[i])
+            wall.append((time.perf_counter() - t1) * 1e3)
+            row = dict(initialized=initialized, state=slam.get_tracking_state().name,
+                       **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
+                                  (a - b for a, b in zip(vi_counts(), before)))))
+            rows.append(row)
+            if not captured and row["fused_vi"] and not row["host"]:
+                captured.extend(calls)
+    finally:
+        track_device.pose_optimize_fused = real_lm
+    slam.shutdown()
+    torch.cuda.synchronize()
+    launches = counts_now()
+    m = slam.map
+    traj = slam.trajectory_tum()
+    est = np.array([r[1:4] for r in traj])
+    gt = gt_centers(seq, traj)
+    rmse, _ = ate(est, gt)
+    R, _, s, _ = horn_align(est, gt, True)
+    vel_err = float(np.median([np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
+                               for k in m.valid_kf_ids()]))
+    ok_frame = next((i for i, r in enumerate(rows) if r["state"] == "OK"), -1)
+    init_frame = next((i for i, r in enumerate(rows[1:], 1) if r["initialized"]), -1) - 1
+    log(f"[stereo_vi] state {slam.get_tracking_state().name}, stereo init on frame {ok_frame}, "
+        f"IMU initialized {m.imu_initialized} (after frame {init_frame}), "
+        f"{len(m.valid_kf_ids())} KFs, {int(m.mp_valid[: m.n_mp].sum())} map points, "
+        f"{len(traj)} trajectory rows, unscaled ATE {rmse * 100:.3f} cm, Horn scale {s:.5f}, "
+        f"|R[2,2]| {abs(R[2, 2]):.6f}, median KF velocity error {vel_err:.4f} m/s; mapper "
+        f"events {[e['event'] for e in slam.local_mapper.debug_events]}")
+    fused, fallback, host_pre = vi_run_summary("stereo_vi", slam, rows, wall, smi)
+    check(m.imu_initialized, "stereo_vi: the IMU never initialized")
+    check(slam.get_tracking_state() == State.OK, "stereo_vi: final state not OK")
+    check(len(traj) >= N_STEREO_VI - 10 and np.isfinite(est).all(), "stereo_vi: trajectory")
+    check(rmse < 0.05 and abs(s - 1.0) < 0.03, f"stereo_vi: ATE {rmse}, Horn scale {s}")
+    check(abs(R[2, 2]) > 0.99, f"stereo_vi: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(vel_err < 0.2, f"stereo_vi: median KF velocity error {vel_err}")
+    check(slam.async_mapper is None or not slam.async_mapper.errors, "stereo_vi: mapper errors")
+    check(all(r["patch"] == 2 for r in rows),
+          f"stereo_vi: patch-gather launches per frame {sorted(set(r['patch'] for r in rows))}"
+          f" != 2")
+    check(sum(r["pose"] for r in host_pre) > 0,
+          "stereo_vi: no pose LM on the host path before the IMU init")
+    check(len(fused) >= 1 and len(captured) == 4,
+          f"stereo_vi: no frame after the IMU init took the fused VI step ({len(captured)} "
+          f"pose-LM calls kept)")
+    check(all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
+          "stereo_vi: a fused VI frame did not make 4 pose-LM launches and one "
+          "pose_inertial_solve")
+    # the pose LM on the inputs the first fused VI frame gave it
+    shapes, worst = {}, 0.0
+    for j, (a, kw) in enumerate(captured):
+        eR, et, agree, _, rounds = pose_lm_compare(pose_opt_cuda.pose_optimize_fused, a,
+                                                   f"stereo_vi call {j}", kw)
+        worst = max(worst, eR, et)
+        st = a[5] & a[6]
+        n_valid = int(a[6].sum())
+        valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
+        shapes[f"call_{j}"] = dict(n=int(a[2].shape[0]), valid=valid_by, n_rounds=kw["n_rounds"],
+                                   dR=eR, dt=et, agreement=agree,
+                                   steps=[r["steps"] for r in rounds],
+                                   in_use=[(r["mono"], r["stereo"]) for r in rounds],
+                                   flops=pose_lm_ops(rounds, valid_by))
+        log(f"[stereo_vi] pose LM call {j} of the first fused VI frame (N={a[2].shape[0]}, "
+            f"valid {valid_by}, {kw['n_rounds']} rounds): |dR| {eR:.3g} |dt| {et:.3g} inlier "
+            f"agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
+    # the last call (4 rounds) timed as in phase 2
+    a, kw = captured[-1]
+    args32 = [x.to(torch.float32).contiguous() for x in a[:5]] + list(a[5:])
+    fused_call = lambda: pose_opt_cuda.pose_optimize_fused(*args32, **kw)  # noqa: E731
+    host_ms, dev_ms, plain_ms = pose_lm_times(
+        fused_call, fused_call, lambda: pose_opt_cuda.pose_optimize_plain(*args32, **kw))
+    rec = shapes[f"call_{len(captured) - 1}"]
+    n_bytes = pose_lm_bytes(rec["n"])
+    b_ms, b_by, b_res = bound(n_bytes, rec["flops"])
+    rec.update(ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=n_bytes)
+    log(f"[stereo_vi] pose LM on the first fused VI frame's last call: kernel device "
+        f"{rec['device_ms']:.5f} ms, host-inclusive {rec['ms']:.5f} ms; plain "
+        f"{rec['plain_ms']:.4f} ms; bound {b_ms:.7f} ms ({rec['flops']} f32 operations, "
+        f"{n_bytes} bytes: {b_res}); the bound is {b_ms / rec['device_ms']:.5f} of the device "
+        f"time; card {smi}")
+    log(f"[stereo_vi] phase 12 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(shapes, max_abs_err=worst)
 
 
 def kb8_pose_solve(dev, cam, n_valid=500, n=768, seed=4):
@@ -1248,9 +1525,9 @@ def phase_fisheye(dev, smi):
     seq = SyntheticSequence(seed=0, n_frames=N_FISH, fps=FISH_FPS, speed=0.5, camera=cam,
                             camera2=cam2, Trl=Trl)
     t0 = time.perf_counter()
-    frames = [(u8(seq.frame(i)), u8(seq.frame(i, right=True))) for i in range(N_FISH)]
+    frames = render(seq, N_FISH, "stereo")
     log(f"[fisheye] rendered {N_FISH} KB8 stereo pairs {FISH_WH}x{FISH_WH} in "
-        f"{time.perf_counter() - t0:.1f} s (host)")
+        f"{time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
     bf = cam.fx * FISH_BASELINE
     cfg = SlamConfig(orb=OrbConfig(n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE),
                      tracking=TrackingConfig(min_stereo_init_features=150))
@@ -1699,8 +1976,9 @@ def main():
     seq = SyntheticSequence(n_frames=N_SYSTEM, fps=20, speed=0.5, baseline=BASELINE,
                             height=H, width=W, fx=FX, fy=FY)
     t0 = time.perf_counter()
-    frames = [(u8(seq.frame(i)), u8(seq.frame(i, right=True))) for i in range(N_SYSTEM)]
-    log(f"[render] {N_SYSTEM} stereo frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host)")
+    frames = render(seq, N_SYSTEM, "stereo")
+    log(f"[render] {N_SYSTEM} stereo frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host, "
+        f"{RENDER_WORKERS} processes)")
     records = phase_kernels(dev, seq)
     by_path = {"fused_step": phase_slice(dev, seq, frames)}
     by_path.update(phase_system(dev, seq, frames, smi))
@@ -1709,24 +1987,30 @@ def main():
     loop_frames = render_loop()
     by_path["mono_loop"] = phase_mono_loop(dev, smi, loop_frames)
     by_path["rgbd"] = phase_rgbd(dev, smi)
-    by_path["mono_vi"] = phase_mono_vi(dev, smi)
+    vi_data = render_mono_vi()
+    by_path["mono_vi"] = phase_mono_vi(dev, smi, vi_data)
+    by_path["mono_vi_async"] = phase_mono_vi(dev, smi, vi_data, async_mapping=True)
+    del vi_data
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
     by_path.update(phase_cli(dev, smi, cli_images))
     by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
     by_path.update(tools)
+    by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
-    lm["max_abs_err"] = max([lm["max_abs_err"]]
+    lm["stereo_vi_shapes"] = stereo_vi_shapes
+    lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err")]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
                       "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
-                      "mono_vi": N_VI, "fisheye_stereo": N_FISH, "cli": N_CLI,
+                      "mono_vi": N_VI, "mono_vi_async": N_VI, "stereo_vi": N_STEREO_VI,
+                      "fisheye_stereo": N_FISH, "cli": N_CLI,
                       "cli_b": 2 * N_CLI, "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS}

@@ -2,10 +2,12 @@
 
   * No module of tpuslam_torch, and nothing in chip_smoke.py,
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
-    bench_frontend_torch.py and the scripts/*_torch.py files, imports
-    tpuslam or jax, nor what the
-    card host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of
-    them blocked imports them all).
+    bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
+    heave helper (tests/torch_vi_heave.py, which chip_smoke.py imports),
+    imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
+    matplotlib, PIL (a subprocess with all of them blocked imports them
+    all; tpuslam_torch.viz imports matplotlib only when it draws). The
+    heave helper imports nothing but the port and numpy.
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
@@ -15,6 +17,7 @@
     the sites that call them).
 """
 
+import ast
 import os
 import subprocess
 import sys
@@ -56,12 +59,15 @@ for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torc
                "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py"):
     spec = importlib.util.spec_from_file_location("script", script)
     spec.loader.exec_module(importlib.util.module_from_spec(spec))
+sys.path.insert(0, "tests")
+import torch_vi_heave
 loaded = {k for k, v in sys.modules.items() if v is not None}
 assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
 assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
         "tpuslam_torch.io.rectify", "tpuslam_torch.io.png", "tpuslam_torch.place.orbvoc",
         "tpuslam_torch.place.store", "tpuslam_torch.map.checkpoint",
-        "tpuslam_torch.parallel.dist_ba", "tpuslam_torch.parallel.launch"} <= set(names)
+        "tpuslam_torch.parallel.dist_ba", "tpuslam_torch.parallel.launch",
+        "tpuslam_torch.viz"} <= set(names)
 print("ISOLATED_OK", len(names))
 """ % (BLOCKED,)
 
@@ -73,6 +79,19 @@ def test_port_imports_nothing_of_tpuslam_or_jax():
     assert res.returncode == 0, res.stderr[-3000:]
     assert "ISOLATED_OK" in res.stdout
     assert int(res.stdout.split()[-1]) > 40          # every module was walked
+
+
+def test_heave_helper_imports_only_the_port_and_numpy():
+    """tests/torch_vi_heave.py serves chip_smoke.py on the card host."""
+    with open(os.path.join(ROOT, "tests", "torch_vi_heave.py")) as fh:
+        tree = ast.parse(fh.read())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            roots.add(node.module.split(".")[0])
+    assert roots == {"numpy", "tpuslam_torch"}, roots
 
 
 def _cam():

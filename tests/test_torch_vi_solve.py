@@ -304,7 +304,7 @@ def _ba_start(rng, d, kind):
 
 
 def _ba_both(d, start, fixed, n_iters, dtype=torch.float64, jax_kw=None, port_kw=None,
-             port_only=False):
+             port_only=False, bf=0.0):
     """Both packages' vi_ba_solve on problem d (port_only: the port's
     alone, None for tpuslam's); jax_kw / port_kw: extra keywords of each
     side's solve (a camera spec)."""
@@ -321,23 +321,42 @@ def _ba_both(d, start, fixed, n_iters, dtype=torch.float64, jax_kw=None, port_kw
         *[J(x, jd) for x in start], *map(jnp.asarray, ints), *[J(x, jd) for x in obs],
         *map(jnp.asarray, masks), *map(jnp.asarray, edges), {k: J(v, jd) for k, v in pre.items()},
         J(info9, jd), J(np.zeros((K, 3)), jd), J(np.zeros((K, 3)), jd), jnp.asarray(fixed),
-        *map(jnp.asarray, pairs), d["fx"], d["fy"], d["cx"], d["cy"], 0.0,
+        *map(jnp.asarray, pairs), d["fx"], d["fy"], d["cx"], d["cy"], bf,
         J(d["rw_info_g"], jd), J(d["rw_info_a"], jd), n_iters=n_iters, **(jax_kw or {}))
     to = TBA.vi_ba_solve(
         *[T(x, dtype) for x in start], *map(torch.as_tensor, ints), *[T(x, dtype) for x in obs],
         *map(torch.as_tensor, masks), *map(torch.as_tensor, edges), pre_to(pre, "cpu", dtype),
         T(info9, dtype), T(np.zeros((K, 3)), dtype), T(np.zeros((K, 3)), dtype),
         torch.as_tensor(fixed), *map(torch.as_tensor, pairs), d["fx"], d["fy"], d["cx"], d["cy"],
-        0.0, T(d["rw_info_g"], dtype), T(d["rw_info_a"], dtype), n_iters=n_iters,
+        bf, T(d["rw_info_g"], dtype), T(d["rw_info_a"], dtype), n_iters=n_iters,
         **(port_kw or {}))
     return None if jo is None else [np.asarray(x) for x in jo], [x.numpy() for x in to]
 
 
-@pytest.mark.parametrize("kind", ["truth", "perturbed", "fixed"])
+def _with_stereo_rows(d):
+    """Problem d with every other observation a stereo row (u_right = u -
+    BF / z, the body frame being the camera's), as a stereo map gives the
+    visual-inertial BA."""
+    d = dict(d)
+    Xc = np.einsum("oji,oj->oi", d["Rwb"][d["obs_kf"]], d["X"][d["obs_pt"]] - d["p"][d["obs_kf"]])
+    stereo = (np.arange(len(Xc)) % 2 == 0) & d["valid"]
+    d["uvr"] = d["uvr"].copy()
+    d["uvr"][stereo, 2] = d["uvr"][stereo, 0] - BF / Xc[stereo, 2]
+    d["stereo"] = stereo
+    assert stereo.sum() > 10 and (Xc[stereo, 2] > 0).all()
+    return d
+
+
+@pytest.mark.parametrize("kind", ["truth", "perturbed", "fixed", "stereo"])
 def test_vi_ba_solve_matches_tpuslam(rng, kind):
+    """stereo: the perturbed problem with stereo rows (BF), as the
+    stereo-inertial mapper's BAs give it."""
     d = _make_problem(rng)
-    start, fixed, n_iters = _ba_start(rng, d, kind)
-    jo, to = _ba_both(d, start, fixed, n_iters)
+    bf = 0.0
+    if kind == "stereo":
+        d, bf = _with_stereo_rows(d), BF
+    start, fixed, n_iters = _ba_start(rng, d, "perturbed" if kind == "stereo" else kind)
+    jo, to = _ba_both(d, start, fixed, n_iters, bf=bf)
     for name, a, b in zip(("Rwb", "p", "v", "bg", "ba", "X"), to[:6], jo[:6]):
         close(a, b, 1e-8, name)
     assert abs(float(to[6]) - float(jo[6])) <= 1e-6 * max(float(jo[6]), 1e-3)
