@@ -5,7 +5,8 @@
 Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
 levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
 mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
-distributed BA, the measuring tools and stereo-inertial.
+distributed BA, the measuring tools, stereo-inertial, and TUM-VI's fisheye
+stereo-inertial and mono-inertial routes.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -72,7 +73,7 @@ Phases, each raising on failure:
      (Tracker._sync_imu_from_map) that rebased the last frame, both
      kernels launched;
   8. fisheye stereo: System(camera2=, Tlr=).track_stereo at TUM-VI's
-     512x512 over 40 frames at 20 fps (0.5 m/s) rendered by the port's
+     512x512 over 20 frames at 20 fps (0.5 m/s) rendered by the port's
      Kannala-Brandt renderer from seed 0, the rig of
      tests/test_e2e_fisheye.py with fx, fy, cx, cy doubled (its k's kept),
      lapping (0, 511), a 0.2 m baseline: it must end OK with >= 2
@@ -140,7 +141,7 @@ Phases, each raising on failure:
      pose solve at each padded row count) held against the plain versions:
      the gather bitwise, the pose LM with phase 2's tolerances.
  12. stereo-inertial: System.track_stereo(..., imu=) on an IMU_STEREO
-     System over 55 frames of the heave sequence (tests/torch_vi_heave.py:
+     System over 42 frames of the heave sequence (tests/torch_vi_heave.py:
      vi_excite plus a 0.10 m vertical heave at 4 rad/s, which passes the
      stereo-inertial init gate; 10 fps, 0.5 m/s, IMU at 200 Hz) at 752x480
      with the phase constants' rig (fx = fy = 458, baseline 0.11 m),
@@ -156,13 +157,42 @@ Phases, each raising on failure:
      must take the fused step. The 4 pose-LM calls of the first fused VI
      frame are kept and held against the plain version (phase 2's
      tolerances), and the last (4 rounds) timed as in phase 2.
+ 13. fisheye stereo-inertial, TUM-VI's main configuration:
+     System(KB8, IMU_STEREO, camera2=, Tlr=).track_stereo(..., imu=) over
+     37 frames of the heave sequence seen by phase 8's rig
+     (tests/torch_fisheye_rig.py at 512x512, 0.2 m baseline), at 10 fps
+     (cut from TUM-VI's 20 Hz: the IMU init needs 10 keyframes and 2 s of
+     them), IMU at 200 Hz, phase 7's ImuCalib, 1024 features, the CPU
+     tests' radii scaled from 256 px, f32 solvers. Every frame takes the
+     host path: the camera-generic KB8 pose solves before the IMU init,
+     pose_inertial_solve with the KB8 camera after it. It must end OK with
+     the IMU initialized, an unscaled ATE under 8 cm, a Horn scale within
+     3 % of 1, |R[2, 2]| > 0.99, a median keyframe-velocity error under
+     0.2 m/s and no mapper errors; every frame makes exactly 2 patch-gather
+     launches, the phase no pose-LM launch, every tracked frame before the
+     init a camera-generic solve and every frame after it (at least 6) a
+     KB8 pose_inertial_solve. The patch gather is held bitwise against its
+     plain version on frame 0's left and right inputs and timed as in
+     phase 2. The stereo-init and IMU-init frames, the errors, the stage
+     table and the host frame times before and after the init are printed;
+ 14. fisheye mono-inertial (TUM-VI's `--sensor mono_imu`):
+     System(KB8, IMU_MONOCULAR).track_monocular(..., imu=) over 33 frames
+     of vi_excite seen by the rig's left camera, phase 13's settings:
+     phase 7's gates (IMU initialized, OK, Horn scale within 0.4 of 1,
+     scaled ATE under 6 cm, |R[2, 2]| > 0.99, median keyframe-velocity
+     error under 0.2 m/s), exactly 1 patch-gather launch per frame, no
+     pose-LM launch, phase 13's solver routes, the patch gather held
+     against its plain version on frame 0, and phase 13's figures with the
+     two-view init frame.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
 level0_step, frontend_chain, graft_entry, bench_system and
 sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes; phase 7
 (b) as mono_vi_async, phase 12 as stereo_vi with its first fused frame's
-pose-LM calls as stereo_vi_shapes), the nvidia-smi line
+pose-LM calls as stereo_vi_shapes, phases 13-14 as fisheye_stereo_vi and
+fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes), the
+nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -210,7 +240,7 @@ CIRCUMFERENCE = 2 * np.pi * 1.6
 N_RGBD = 40            # phase 6
 N_VI = 55              # phase 7: the frames of tests/test_e2e_mono_inertial.py
 VI_NOISE = dict(noise_gyro=1e-4, noise_acc=1e-3, walk_gyro=1e-6, walk_acc=1e-5)
-N_FISH, FISH_FPS, FISH_WH = 40, 20, 512   # phase 8: TUM-VI's camera rate and size
+N_FISH, FISH_FPS, FISH_WH = 20, 20, 512   # phase 8: TUM-VI's camera rate and size
 FISH_BASELINE = 0.2
 N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
 N_DIST_RANKS = 4       # phase 10 (b, c): gloo ranks sharing the card
@@ -218,7 +248,10 @@ DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's ru
 N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
 N_BENCH = 40           # phase 11 (c): bench_torch's frames (a warm pass and one timed)
 N_SENSORS = 20         # phase 11 (d): bench_sensors_torch's RGB-D frames (two passes)
-N_STEREO_VI = 55       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
+N_STEREO_VI = 42       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
+# phases 13-14: TUM-VI's fisheye visual-inertial routes at FISH_WH, cut from
+# TUM-VI's 20 Hz to 10 fps: the IMU init needs 10 keyframes and 2 s of them
+N_FISH_STEREO_VI, N_FISH_MONO_VI, FISH_VI_FPS = 37, 33, 10   # the IMU init + ~8 frames
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
@@ -1442,6 +1475,168 @@ def phase_stereo_vi(dev, smi):
     return launches, dict(shapes, max_abs_err=worst)
 
 
+def fisheye_vi_config():
+    """The CPU tests' fisheye visual-inertial configuration (a keyframe at
+    least every 3 frames, a stereo init from 150 features) at FISH_WH: their
+    pixel radii scaled from 256 px."""
+    from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
+
+    base, k = TrackingConfig(), FISH_WH / 256.0
+    return SlamConfig(orb=OrbConfig(n_features=N_FEATURES, n_levels=N_LEVELS, scale=SCALE),
+                      tracking=TrackingConfig(max_frames_between_kf=3,
+                                              min_stereo_init_features=150,
+                                              motion_model_radius=base.motion_model_radius * k,
+                                              init_window=base.init_window * k))
+
+
+def phase_fisheye_vi(dev, smi, stereo):
+    """Phases 13 (stereo) and 14 (mono): TUM-VI's fisheye visual-inertial
+    routes, System(KB8, IMU_STEREO, camera2=, Tlr=).track_stereo(..., imu=)
+    over the heave sequence, or System(KB8, IMU_MONOCULAR)
+    .track_monocular(..., imu=) over vi_excite, at FISH_WH with
+    tests/torch_fisheye_rig.py's rig; the patch gather held against its
+    plain version on frame 0's inputs. Returns the launch counts and the
+    patch gather's records."""
+    import torch
+
+    from tpuslam_torch.engine.system import Sensor, System
+    from tpuslam_torch.engine.tracking import State
+    from tpuslam_torch.eval.ate import ate_rmse as ate
+    from tpuslam_torch.eval.ate import horn_align
+    from tpuslam_torch.imu.preintegration import ImuCalib
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+    from tpuslam_torch.ops import orb
+    from tpuslam_torch.solve import pose_opt_dispatch
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_fisheye_rig import kb8_rig
+    from torch_vi_heave import heave_sequence
+
+    name, n = ("fisheye_stereo_vi", N_FISH_STEREO_VI) if stereo else ("fisheye_mono_vi",
+                                                                        N_FISH_MONO_VI)
+    t_phase = time.perf_counter()
+    cam, cam2, Trl = kb8_rig(FISH_WH, FISH_BASELINE)
+    if stereo:
+        seq = heave_sequence(n_frames=n, fps=FISH_VI_FPS, speed=0.5, imu_rate=200.0,
+                             camera=cam, camera2=cam2, Trl=Trl)
+    else:
+        seq = SyntheticSequence(n_frames=n, fps=FISH_VI_FPS, speed=0.5, imu_rate=200.0,
+                                kind="vi_excite", camera=cam)
+    frames = render(seq, n, "stereo" if stereo else "mono")
+    times = seq.timestamps()
+    imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
+                    for i in range(1, n)]
+    log(f"[{name}] rendered {n} KB8 {'stereo pairs' if stereo else 'images'} "
+        f"{FISH_WH}x{FISH_WH} and {sum(len(x) for x in imu[1:])} IMU samples in "
+        f"{time.perf_counter() - t_phase:.1f} s (host, {RENDER_WORKERS} processes)")
+    calib = ImuCalib(**VI_NOISE, freq=seq.imu_rate)
+    if stereo:
+        slam = System(cam, fisheye_vi_config(), sensor=Sensor.IMU_STEREO, imu_calib=calib,
+                      bf=cam.fx * FISH_BASELINE, camera2=cam2, Tlr=np.linalg.inv(Trl),
+                      device=dev)
+    else:
+        slam = System(cam, fisheye_vi_config(), sensor=Sensor.IMU_MONOCULAR, imu_calib=calib,
+                      device=dev)
+    generic, gathers = [0], []   # camera-generic pose solves; frame 0's gather inputs
+    real_solve, real_gather = pose_opt_dispatch.pose_optimize, orb.extract_patches_levels
+
+    def counted(*a, **kw):
+        generic[0] += 1
+        return real_solve(*a, **kw)
+
+    def captured(levels, yx, budgets, size):
+        if len(gathers) < (2 if stereo else 1):
+            gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets), size))
+        return real_gather(levels, yx, budgets, size)
+
+    pose_opt_dispatch.pose_optimize = counted
+    orb.extract_patches_levels = captured
+    GLOBAL_TIMER.samples.clear()
+    reset_counts()
+    wall, rows = [], []
+    try:
+        for i in range(n):
+            before = (*vi_counts(), generic[0])
+            initialized = slam.map.imu_initialized
+            t1 = time.perf_counter()
+            if stereo:
+                slam.track_stereo(*frames[i], times[i], imu=imu[i])
+            else:
+                slam.track_monocular(frames[i], times[i], imu=imu[i])
+            wall.append((time.perf_counter() - t1) * 1e3)
+            rows.append(dict(initialized=initialized, state=slam.get_tracking_state().name,
+                             **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host",
+                                         "generic"),
+                                        (a - b for a, b in zip((*vi_counts(), generic[0]),
+                                                               before))))))
+        slam.shutdown()
+        torch.cuda.synchronize()
+    finally:
+        pose_opt_dispatch.pose_optimize = real_solve
+        orb.extract_patches_levels = real_gather
+    launches = counts_now()
+    m = slam.map
+    traj = slam.trajectory_tum()
+    est = np.array([r[1:4] for r in traj])
+    gt = gt_centers(seq, traj)
+    rmse, _ = ate(est, gt)
+    scaled, _ = ate(est, gt, True)
+    R, _, s, _ = horn_align(est, gt, True)
+    vel_err = float(np.median([np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
+                               for k in m.valid_kf_ids()]))
+    ok_frame = next((i for i, r in enumerate(rows) if r["state"] == "OK"), -1)
+    init_frame = next((i for i, r in enumerate(rows[1:], 1) if r["initialized"]), -1) - 1
+    post = [r for r in rows if r["initialized"]]
+    pre_host = [r for r in rows[ok_frame + 1:] if not r["initialized"]]
+    errors = slam.async_mapper.errors if slam.async_mapper is not None else []
+    log(f"[{name}] state {slam.get_tracking_state().name}, "
+        f"{'stereo' if stereo else 'two-view'} init on frame {ok_frame}, IMU initialized "
+        f"{m.imu_initialized} (after frame {init_frame}), {len(m.valid_kf_ids())} KFs, "
+        f"{int(m.mp_valid[: m.n_mp].sum())} map points, {len(traj)} trajectory rows, unscaled "
+        f"ATE {rmse * 100:.3f} cm, scaled ATE {scaled * 100:.3f} cm, Horn scale {s:.5f}, "
+        f"|R[2,2]| {abs(R[2, 2]):.6f}, median KF velocity error {vel_err:.4f} m/s; mapper "
+        f"events {[e['event'] for e in slam.local_mapper.debug_events]}")
+    stage_table(name, GLOBAL_TIMER)
+    for what, part in (("before", [w for w, r in zip(wall, rows) if not r["initialized"]]),
+                       ("after", [w for w, r in zip(wall, rows) if r["initialized"]])):
+        log(f"[{name}] host frames {what} the IMU init: {len(part)}, wall ms median "
+            f"{np.median(part or [np.nan]):.3f} max {max(part or [np.nan]):.3f}; card {smi}")
+    log(f"[{name}] launches {launches}; patch gather per frame "
+        f"{sorted(set(r['patch'] for r in rows))}; camera-generic KB8 pose solves per tracked "
+        f"frame before the init {sorted(set(r['generic'] for r in pre_host))}, after it "
+        f"{sorted(set(r['generic'] for r in post))}; pose_inertial_solve calls per frame after "
+        f"the init {[r['vi_solves'] for r in post]}; fused VI frames "
+        f"{sum(r['fused_vi'] for r in rows)}")
+    # the kernel against its plain version on exactly what this path gave it
+    check(len(gathers) == (2 if stereo else 1),
+          f"{name}: {len(gathers)} patch gathers captured on frame 0")
+    sides = ("left", "right") if stereo else ("left",)
+    shapes = {f"{name}_{side}": patch_compare(*g, f"{name} {FISH_WH}x{FISH_WH} frame 0 {side}")
+              for side, g in zip(sides, gathers)}
+    check(slam.tracker.camspec.kind == "kb8", f"{name}: the tracker's camera is not KB8")
+    check(m.imu_initialized, f"{name}: the IMU never initialized")
+    check(slam.get_tracking_state() == State.OK, f"{name}: final state not OK")
+    check(len(traj) >= n - 10 and np.isfinite(est).all(), f"{name}: trajectory")
+    if stereo:   # tests/test_torch_fisheye_inertial_e2e.py's gates
+        check(rmse < 0.08 and abs(s - 1.0) < 0.03, f"{name}: ATE {rmse}, Horn scale {s}")
+    else:        # phase 7's
+        check(scaled < 0.06 and abs(s - 1.0) < 0.4, f"{name}: scaled ATE {scaled}, scale {s}")
+    check(abs(R[2, 2]) > 0.99, f"{name}: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(vel_err < 0.2, f"{name}: median KF velocity error {vel_err}")
+    check(not errors, f"{name}: mapper errors {errors}")
+    check(all(r["patch"] == len(sides) for r in rows),
+          f"{name}: patch-gather launches per frame {[r['patch'] for r in rows]}")
+    check(launches["pose_lm"] == 0, f"{name}: {launches['pose_lm']} pose-LM launches")
+    check(all(r["generic"] >= 1 for r in pre_host),
+          f"{name}: a tracked frame before the IMU init without a camera-generic pose solve")
+    check(len(post) >= 6 and all(r["vi_solves"] >= 1 and not r["fused_vi"] for r in post),
+          f"{name}: {len(post)} frames after the IMU init, or one without a KB8 "
+          f"pose_inertial_solve")
+    log(f"[{name}] phase {13 if stereo else 14} in {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes
+
+
 def kb8_pose_solve(dev, cam, n_valid=500, n=768, seed=4):
     """One camera-generic KB8 pose solve at the fisheye host tracker's
     shape (n_valid observations padded to n, f32): its wall time (median
@@ -1503,8 +1698,6 @@ def phase_fisheye(dev, smi):
     the launch counts."""
     import torch
 
-    from bench_sensors_torch import KB_L, KB_R
-    from tpuslam_torch.cameras import KannalaBrandt8
     from tpuslam_torch.engine.config import OrbConfig, SlamConfig, TrackingConfig
     from tpuslam_torch.engine.system import Sensor, System
     from tpuslam_torch.engine.tracking import State
@@ -1514,14 +1707,10 @@ def phase_fisheye(dev, smi):
     from tpuslam_torch.solve import pose_opt_dispatch
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
-    def rig(p):  # bench_sensors_torch's 256 px rig, fx, fy, cx, cy doubled
-        return [2 * v for v in p[:4]] + p[4:]
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_fisheye_rig import kb8_rig
 
-    lap = (0, FISH_WH - 1)
-    cam = KannalaBrandt8(rig(KB_L), FISH_WH, FISH_WH, lapping=lap)
-    cam2 = KannalaBrandt8(rig(KB_R), FISH_WH, FISH_WH, lapping=lap)
-    Trl = np.eye(4)
-    Trl[:3, 3] = [-FISH_BASELINE, 0.0, 0.0]
+    cam, cam2, Trl = kb8_rig(FISH_WH, FISH_BASELINE)   # the 256 px rig, fx, fy, cx, cy doubled
     seq = SyntheticSequence(seed=0, n_frames=N_FISH, fps=FISH_FPS, speed=0.5, camera=cam,
                             camera2=cam2, Trl=Trl)
     t0 = time.perf_counter()
@@ -1997,6 +2186,10 @@ def main():
     tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
     by_path.update(tools)
     by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
+    for stereo in (True, False):
+        path = "fisheye_stereo_vi" if stereo else "fisheye_mono_vi"
+        by_path[path], shapes = phase_fisheye_vi(dev, smi, stereo)
+        fish_shapes.update(shapes)
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
@@ -2010,7 +2203,8 @@ def main():
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
                       "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
                       "mono_vi": N_VI, "mono_vi_async": N_VI, "stereo_vi": N_STEREO_VI,
-                      "fisheye_stereo": N_FISH, "cli": N_CLI,
+                      "fisheye_stereo": N_FISH, "fisheye_stereo_vi": N_FISH_STEREO_VI,
+                      "fisheye_mono_vi": N_FISH_MONO_VI, "cli": N_CLI,
                       "cli_b": 2 * N_CLI, "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS}

@@ -13,8 +13,13 @@ port's CLI runs end to end from files on disk:
     python -m tpuslam_torch.run --dataset euroc --path <out_dir> \
         --settings <out_dir>/synth.yaml --sensor stereo --eval [--device cpu]
 
-`write_euroc(seq, out)` writes a given SyntheticSequence (any size, or
-frames the caller has rendered);
+With --fisheye it writes a TUM-VI tree instead: a Kannala-Brandt (KB8)
+stereo pair at TUM-VI's 512x512 and <out_dir>/tum_vi.yaml,
+for `python -m tpuslam_torch.run --dataset tum_vi --settings
+<out_dir>/tum_vi.yaml --sensor {mono,stereo,mono_imu,stereo_imu}`.
+
+`write_euroc(seq, out)` and `write_tum_vi(seq, out)` write a given
+SyntheticSequence (any size, or frames the caller has rendered);
 `identity_rectification_yaml(seq)` gives LEFT./RIGHT. blocks that leave
 its pre-rectified pair unchanged.
 """
@@ -34,10 +39,9 @@ from tpuslam_torch.io.png import write_png  # noqa: E402
 from tpuslam_torch.io.synthetic import SyntheticSequence  # noqa: E402
 
 
-def write_euroc(seq, out, n_features=700, images=None):
-    """Write `seq`'s stereo frames, IMU and ground truth under out/mav0 and
-    a reference-style YAML (pre-rectified pinhole pair, ideal IMU) to
-    out/synth.yaml; returns the YAML's path. images: the (left, right)
+def write_tree(seq, out, images=None):
+    """Write `seq`'s stereo frames, IMU and ground truth under out/mav0, the
+    layout that load_euroc and load_tum_vi read. images: the (left, right)
     uint8 frames of `seq` where the caller has rendered them already."""
     mav = os.path.join(out, "mav0")
     for sub in ("cam0/data", "cam1/data", "imu0",
@@ -85,7 +89,12 @@ def write_euroc(seq, out, n_features=700, images=None):
                      f"{p[2]:.9f},{q[3]:.9f},{q[0]:.9f},{q[1]:.9f},"
                      f"{q[2]:.9f}\n")
 
-    # reference-style YAML (pre-rectified pinhole pair, ideal IMU)
+
+def write_euroc(seq, out, n_features=700, images=None):
+    """Write `seq`'s tree (write_tree) and a reference-style YAML
+    (pre-rectified pinhole pair, ideal IMU) to out/synth.yaml; returns the
+    YAML's path."""
+    write_tree(seq, out, images)
     yaml_path = os.path.join(out, "synth.yaml")
     with open(yaml_path, "w") as fh:
         fh.write(f"""%YAML:1.0
@@ -109,6 +118,61 @@ IMU.NoiseGyro: 1.7e-4
 IMU.NoiseAcc: 2.0e-3
 IMU.GyroWalk: 1.9e-5
 IMU.AccWalk: 3.0e-3
+ORBextractor.nFeatures: {n_features}
+ORBextractor.scaleFactor: 1.2
+ORBextractor.nLevels: 8
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+""")
+    return yaml_path
+
+
+def write_tum_vi(seq, out, n_features=1000, images=None):
+    """Write `seq`'s tree (write_tree: TUM-VI keeps EuRoC's mav0 layout)
+    and a KB8 settings file with the keys of the reference's TUM_512.yaml
+    (Camera.* and Camera2.* with k1-k4, the 3x4 Tlr, the lapping areas,
+    Camera.bf, IMU.* with Tbc = I: the renderer's IMU is the left camera)
+    to out/tum_vi.yaml; returns its path. `seq` carries a Kannala-Brandt
+    pair (camera=, camera2=, Trl=)."""
+    write_tree(seq, out, images)
+    Tlr = np.linalg.inv(seq.Trl)
+    bf = seq.camera.fx * float(np.linalg.norm(seq.Trl[:3, 3]))
+
+    def camera(prefix, cam):
+        keys = ("fx", "fy", "cx", "cy", "k1", "k2", "k3", "k4")
+        return "".join(f"{prefix}.{k}: {v!r}\n" for k, v in zip(keys, cam.full_params))
+
+    def matrix(name, rows, cols, data):
+        return (f"{name}: !!opencv-matrix\n  rows: {rows}\n  cols: {cols}\n  dt: f\n"
+                f"  data: [{', '.join(repr(float(v)) for v in np.ravel(data))}]\n")
+
+    yaml_path = os.path.join(out, "tum_vi.yaml")
+    with open(yaml_path, "w") as fh:
+        fh.write(f"""%YAML:1.0
+---
+Camera.type: "KannalaBrandt8"
+{camera("Camera", seq.camera)}
+{camera("Camera2", seq.camera2)}
+{matrix("Tlr", 3, 4, Tlr[:3])}
+Camera.lappingBegin: {seq.camera.lapping[0]}
+Camera.lappingEnd: {seq.camera.lapping[1]}
+Camera2.lappingBegin: {seq.camera2.lapping[0]}
+Camera2.lappingEnd: {seq.camera2.lapping[1]}
+
+Camera.width: {seq.width}
+Camera.height: {seq.height}
+Camera.fps: {seq.fps}
+Camera.bf: {bf!r}
+Camera.RGB: 1
+ThDepth: 40.0
+
+{matrix("Tbc", 4, 4, np.eye(4))}
+IMU.NoiseGyro: 0.00016
+IMU.NoiseAcc: 0.0028
+IMU.GyroWalk: 0.000022
+IMU.AccWalk: 0.00086
+IMU.Frequency: 200
+
 ORBextractor.nFeatures: {n_features}
 ORBextractor.scaleFactor: 1.2
 ORBextractor.nLevels: 8
@@ -146,14 +210,25 @@ def main(argv=None):
     ap.add_argument("--baseline", type=float, default=0.1)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--kind", default="vi_excite")
+    ap.add_argument("--fisheye", action="store_true",
+                    help="a TUM-VI tree: tests/torch_fisheye_rig.py's Kannala-Brandt "
+                         "pair at 512x512 and a KB8 settings file")
     args = ap.parse_args(argv)
 
+    fisheye = {}
+    if args.fisheye:
+        sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), "tests"))
+        from torch_fisheye_rig import kb8_rig
+
+        fisheye = dict(zip(("camera", "camera2", "Trl"), kb8_rig(512, args.baseline)))
     seq = SyntheticSequence(seed=args.seed, n_frames=args.frames,
                             fps=args.fps, speed=0.5,
-                            baseline=args.baseline, kind=args.kind)
-    yaml_path = write_euroc(seq, args.out)
+                            baseline=args.baseline, kind=args.kind, **fisheye)
+    dataset = "tum_vi" if args.fisheye else "euroc"
+    yaml_path = (write_tum_vi if args.fisheye else write_euroc)(seq, args.out)
     print(f"wrote {args.out}: {seq.n_frames} stereo frames + IMU + GT")
-    print(f"run: python -m tpuslam_torch.run --dataset euroc --path {args.out} "
+    print(f"run: python -m tpuslam_torch.run --dataset {dataset} --path {args.out} "
           f"--settings {yaml_path} --sensor stereo --eval")
 
 

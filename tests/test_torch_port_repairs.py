@@ -3,11 +3,14 @@
   * No module of tpuslam_torch, and nothing in chip_smoke.py,
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
-    heave helper (tests/torch_vi_heave.py, which chip_smoke.py imports),
-    imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
-    matplotlib, PIL (a subprocess with all of them blocked imports them
-    all; tpuslam_torch.viz imports matplotlib only when it draws). The
-    heave helper imports nothing but the port and numpy.
+    helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
+    tests/torch_fisheye_rig.py), imports tpuslam or jax, nor what the card
+    host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of them
+    blocked imports them all and writes a TUM-VI tree with
+    make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
+    matplotlib only when it draws). The helpers import nothing but the
+    port and numpy, and scripts/tum_vi_examples_torch.sh drives the port's
+    CLI.
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
@@ -55,12 +58,25 @@ import bench_dist_torch
 import bench_torch
 import bench_sensors_torch
 import bench_frontend_torch
+scripts = {}
 for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torch.py",
                "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py"):
     spec = importlib.util.spec_from_file_location("script", script)
-    spec.loader.exec_module(importlib.util.module_from_spec(spec))
+    scripts[script] = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(scripts[script])
 sys.path.insert(0, "tests")
 import torch_vi_heave
+import torch_fisheye_rig
+# the TUM-VI tree writer, on a 2-frame KB8 heave sequence at 64x64
+import tempfile
+cam, cam2, Trl = torch_fisheye_rig.kb8_rig(64)
+seq = torch_vi_heave.heave_sequence(n_frames=2, camera=cam, camera2=cam2, Trl=Trl)
+out = tempfile.mkdtemp()
+scripts["scripts/make_synth_euroc_torch.py"].write_tum_vi(seq, out)
+from tpuslam_torch.io.datasets import load_tum_vi
+from tpuslam_torch.io.settings import load_settings
+assert len(load_tum_vi(out, stereo=True, with_imu=True)) == 2
+assert load_settings(out + "/tum_vi.yaml").camera2.kind == "kb8"
 loaded = {k for k, v in sys.modules.items() if v is not None}
 assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
 assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
@@ -81,9 +97,8 @@ def test_port_imports_nothing_of_tpuslam_or_jax():
     assert int(res.stdout.split()[-1]) > 40          # every module was walked
 
 
-def test_heave_helper_imports_only_the_port_and_numpy():
-    """tests/torch_vi_heave.py serves chip_smoke.py on the card host."""
-    with open(os.path.join(ROOT, "tests", "torch_vi_heave.py")) as fh:
+def _import_roots(helper):
+    with open(os.path.join(ROOT, "tests", helper)) as fh:
         tree = ast.parse(fh.read())
     roots = set()
     for node in ast.walk(tree):
@@ -91,7 +106,27 @@ def test_heave_helper_imports_only_the_port_and_numpy():
             roots.update(a.name.split(".")[0] for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             roots.add(node.module.split(".")[0])
-    assert roots == {"numpy", "tpuslam_torch"}, roots
+    return roots
+
+
+def test_heave_helper_imports_only_the_port_and_numpy():
+    """tests/torch_vi_heave.py serves chip_smoke.py on the card host."""
+    assert _import_roots("torch_vi_heave.py") == {"numpy", "tpuslam_torch"}
+
+
+def test_fisheye_rig_helper_imports_only_the_port_and_numpy():
+    """So does tests/torch_fisheye_rig.py."""
+    assert _import_roots("torch_fisheye_rig.py") == {"numpy", "tpuslam_torch"}
+
+
+def test_tum_vi_runner_drives_the_port():
+    """scripts/tum_vi_examples_torch.sh runs the port's CLI, on the card
+    unless DEVICE says otherwise, and never tpuslam's."""
+    with open(os.path.join(ROOT, "scripts", "tum_vi_examples_torch.sh")) as fh:
+        text = fh.read()
+    assert "python -m tpuslam_torch.run --dataset tum_vi" in text
+    assert "tpuslam.run" not in text
+    assert '--device "${DEVICE:-cuda}"' in text
 
 
 def _cam():

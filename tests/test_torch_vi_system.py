@@ -48,16 +48,18 @@ def _rot_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1.0) / 2.0, -1.0, 1.0))))
 
 
+def jax_draw(valid, generator=None, n_hyp=twoview.N_HYP):
+    """tpuslam's PRNGKey(seed) choice of two-view samples."""
+    p = np.asarray(valid.cpu() if torch.is_tensor(valid) else valid, np.float32)
+    key = jax.random.PRNGKey(generator.initial_seed() if generator is not None else 0)
+    return torch.as_tensor(np.asarray(jax.random.choice(
+        key, len(p), shape=(n_hyp, 8), p=jnp.asarray(p / max(p.sum(), 1.0)))))
+
+
 @pytest.fixture
 def jax_init_draw(monkeypatch):
     """The port's two-view samples = tpuslam's PRNGKey(seed) choice."""
-    def draw(valid, generator=None, n_hyp=twoview.N_HYP):
-        p = np.asarray(valid.cpu() if torch.is_tensor(valid) else valid, np.float32)
-        key = jax.random.PRNGKey(generator.initial_seed() if generator is not None else 0)
-        return torch.as_tensor(np.asarray(jax.random.choice(
-            key, len(p), shape=(n_hyp, 8), p=jnp.asarray(p / max(p.sum(), 1.0)))))
-
-    monkeypatch.setattr(twoview, "draw_samples", draw)
+    monkeypatch.setattr(twoview, "draw_samples", jax_draw)
 
 
 def _imu(seq, times, i):
