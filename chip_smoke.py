@@ -106,6 +106,18 @@ Phases, each raising on failure:
      rectification YAML, `--path D,D --async-mapping --pipelined --format
      kitti`: two maps, OK, both kernels launched, and the rectifier's
      identity maps giving frame 0 back on the card within 1e-4 gray levels.
+     Run C, two sessions over one place merged into one Atlas map (EuRoC's
+     MH01 -> MH02): run A's tree, then phase 4's frames 20..59 written as a
+     second tree (scripts/make_synth_euroc_torch.SessionView: stamped from
+     100 s, its ground truth in the same world), `--path A,B --sensor
+     stereo --vocab <.txt>` (synchronous mapping, background GBA): OK,
+     one map, exactly one merge (recorded on LoopCloser._correct_loop),
+     inside the second session, one loop closed, a joint unscaled ATE of
+     both sessions' rows against both trees' ground truth under 5 cm,
+     exactly 2 patch-gather launches per frame and pose-LM launches; the
+     merge frame, the stage table (loop, loop.correct, gba.solve,
+     gba.apply), the host ms of each call of the loop closer's solvers
+     and each session's median and p90 frame ms are printed.
      The PNG decode time per image is printed apart from the track time.
  10. distribution (tpuslam_torch/parallel/dist_ba.py; bench_dist_torch.py's
      problem: K = 30 poses, P = 3000 points, O = 15,360 observations, f32):
@@ -189,7 +201,8 @@ The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
 level0_step, frontend_chain, graft_entry, bench_system and
 sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes; phase 7
-(b) as mono_vi_async, phase 12 as stereo_vi with its first fused frame's
+(b) as mono_vi_async, phase 9's runs as cli, cli_b and cli_c, phase 12 as
+stereo_vi with its first fused frame's
 pose-LM calls as stereo_vi_shapes, phases 13-14 as fisheye_stereo_vi and
 fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes), the
 nvidia-smi line
@@ -243,6 +256,9 @@ VI_NOISE = dict(noise_gyro=1e-4, noise_acc=1e-3, walk_gyro=1e-6, walk_acc=1e-5)
 N_FISH, FISH_FPS, FISH_WH = 20, 20, 512   # phase 8: TUM-VI's camera rate and size
 FISH_BASELINE = 0.2
 N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
+# phase 9 run C: the second session, phase 4's frames 20..59, stamped from
+# 100 s (after all of the first session's, as EuRoC's MH02 follows MH01)
+CLI_B_START, CLI_B_T0 = 20, 100.0
 N_DIST_RANKS = 4       # phase 10 (b, c): gloo ranks sharing the card
 DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's run (s)
 N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
@@ -1805,7 +1821,8 @@ def phase_fisheye(dev, smi):
 
 class recorded_systems:
     """Keep every System that tpuslam_torch.run.main builds, so the phase
-    can read the run's map after the call."""
+    can read the run's map after the call, with the host wall ms of each of
+    its track_stereo calls (frame_ms)."""
 
     def __enter__(self):
         from tpuslam_torch import run
@@ -1816,7 +1833,14 @@ class recorded_systems:
         class Recorded(base):
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
+                self.frame_ms = []
                 systems.append(self)
+
+            def track_stereo(self, *a, **kw):
+                t0 = time.perf_counter()
+                out = super().track_stereo(*a, **kw)
+                self.frame_ms.append((time.perf_counter() - t0) * 1e3)
+                return out
 
         run.System = Recorded
         return self.systems
@@ -1836,10 +1860,59 @@ def same_tree(a, b, what, exact_weights=True):
           and float(np.abs(a.word_weight - b.word_weight).max()) <= tol, f"{what}: word weights")
 
 
-def phase_cli(dev, smi, images):
-    """python -m tpuslam_torch.run on an EuRoC tree written to disk; returns
-    the launch counts of run A and run B. images: phase 4's first N_CLI
-    rendered stereo pairs, the frames of this phase's sequence."""
+class loop_probe:
+    """Record every Atlas merge a LoopCloser corrects, (frame id of the
+    current keyframe, current keyframe, candidate keyframe), and the host
+    ms of each call of the loop closer's solvers (the Sim3 RANSAC and
+    refinement, the essential graph, the weld BA), synchronized around
+    each call."""
+
+    PARTS = ("sim3_ransac", "optimize_sim3", "optimize_essential_graph", "window_ba")
+
+    def __enter__(self):
+        import torch
+
+        from tpuslam_torch.engine import loop_closing
+
+        self.merges, self.parts = [], []
+        self.saved = {n: getattr(loop_closing, n) for n in self.PARTS}
+        self.saved_correct = loop_closing.LoopCloser._correct_loop
+        merges, parts, real = self.merges, self.parts, self.saved_correct
+
+        def correct(closer, kf, cand, *a, merge=False, **kw):
+            if merge:
+                merges.append((int(closer.map.kf_frame_id[kf]), int(kf), int(cand)))
+            return real(closer, kf, cand, *a, merge=merge, **kw)
+
+        def timed(name, fn):
+            def call(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                parts.append((name, round((time.perf_counter() - t0) * 1e3, 1)))
+                return out
+            return call
+
+        loop_closing.LoopCloser._correct_loop = correct
+        for name, fn in self.saved.items():
+            setattr(loop_closing, name, timed(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        from tpuslam_torch.engine import loop_closing
+
+        loop_closing.LoopCloser._correct_loop = self.saved_correct
+        for name, fn in self.saved.items():
+            setattr(loop_closing, name, fn)
+
+
+def phase_cli(dev, smi, images, images_b):
+    """python -m tpuslam_torch.run on EuRoC trees written to disk; returns
+    the launch counts of runs A, B and C. images: phase 4's first N_CLI
+    rendered stereo pairs, the frames of this phase's sequence; images_b:
+    its frames CLI_B_START .. CLI_B_START + N_CLI - 1, run C's second
+    session."""
     import importlib.util
     import shutil
 
@@ -2006,6 +2079,59 @@ def phase_cli(dev, smi, images):
     check(got[0].device.type == "cuda" and err <= 1e-4, f"cli B: identity rectification {err}")
     check(counts["cli_b"]["patch_gather"] >= 2 * (2 * N_CLI - 2) and counts["cli_b"]["pose_lm"] > 0,
           f"cli B: launches {counts['cli_b']}")
+
+    # run C: two sessions over one place, merged into one Atlas map (EuRoC's
+    # MH01 -> MH02). Session A is run A's tree; session B is phase 4's
+    # frames 20..59 written as a second tree, its first camera ~0.5 m along
+    # A's path, its stamps after A's, its ground truth in the same world.
+    t_c = time.perf_counter()
+    room = SyntheticSequence(seed=0, n_frames=CLI_B_START + N_CLI, fps=CLI_FPS, speed=0.5,
+                             baseline=BASELINE, height=H, width=W, fx=FX, fy=FY)
+    check(np.array_equal(u8(room.frame(CLI_B_START + N_CLI - 1, right=True)), images_b[-1][1]),
+          "cli C: phase 4's frames are not this sequence's")
+    tree_b = root / "euroc_b"
+    script.write_euroc(script.SessionView(room, CLI_B_START, N_CLI, CLI_B_T0), str(tree_b),
+                       n_features=N_FEATURES, images=images_b)
+    gt = np.concatenate([datasets.load_euroc(str(t), stereo=True).gt for t in (tree, tree_b)])
+    out["c"] = str(root / "c_traj.txt")
+    argv = ["--dataset", "euroc", "--path", f"{tree},{tree_b}", "--settings", yaml_path,
+            "--sensor", "stereo", "--vocab", paths["txt"], "--output", out["c"]]
+    with recorded_systems() as systems, loop_probe() as probe:
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts["cli_c"] = counts_now()
+    slam, merges = systems[0], probe.merges
+    log(f"[cli C] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[cli C] report {json.dumps(rep)}; run.main wall {wall:.1f} s; launches "
+        f"{counts['cli_c']}; merges (frame id, KF, candidate KF) {merges}; loops closed "
+        f"{slam.loop_closer.n_loops_closed}; card {smi}")
+    stage_table("cli C", GLOBAL_TIMER)
+    log(f"[cli C] loop closer solvers, call by call (host ms, synchronized): {probe.parts}")
+    for name, ms in (("A", slam.frame_ms[:N_CLI]), ("B", slam.frame_ms[N_CLI:])):
+        log(f"[cli C] session {name}: {len(ms)} frames, median {np.median(ms):.2f} ms, p90 "
+            f"{np.percentile(ms, 90):.2f} ms, max {max(ms):.1f} ms (host wall of track_stereo)")
+    traj = np.loadtxt(out["c"], ndmin=2)          # t x y z qx qy qz qw
+    i_e, i_g = associate(traj[:, 0], gt[:, 0])
+    rmse, _ = ate_rmse(traj[i_e, 1:4], gt[i_g, 1:4], with_scale=False)
+    log(f"[cli C] trajectory file: {len(traj)} rows ({len(i_e)} matched to both trees' ground "
+        f"truth), joint unscaled ATE {rmse * 100:.3f} cm; merge on frame "
+        f"{merges[0][0] if merges else None} (session B's frame "
+        f"{merges[0][0] - N_CLI if merges else None})")
+    check(rep["state"] == "OK" and rep["maps"] == 1 and rep["frames"] == 2 * N_CLI,
+          f"cli C: report {rep}")
+    check(len(merges) == 1 and merges[0][0] >= N_CLI and slam.loop_closer.n_loops_closed == 1,
+          f"cli C: merges {merges}, loops closed {slam.loop_closer.n_loops_closed}")
+    check(len(traj) == 2 * N_CLI and len(i_e) == len(traj) and rmse < 0.05,
+          f"cli C: {len(traj)} rows, {len(i_e)} matched, joint ATE {rmse}")
+    check(counts["cli_c"]["patch_gather"] == 2 * 2 * N_CLI,
+          f"cli C: {counts['cli_c']['patch_gather']} patch-gather launches, not 2 per frame")
+    check(counts["cli_c"]["pose_lm"] > 0, "cli C: no pose-LM launch")
+    log(f"[cli C] run C in {time.perf_counter() - t_c:.1f} s")
     shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase 9 in {time.perf_counter() - t_phase:.1f} s")
     return counts
@@ -2171,7 +2297,7 @@ def main():
     records = phase_kernels(dev, seq)
     by_path = {"fused_step": phase_slice(dev, seq, frames)}
     by_path.update(phase_system(dev, seq, frames, smi))
-    cli_images = frames[:N_CLI]
+    cli_images, cli_b_images = frames[:N_CLI], frames[CLI_B_START:CLI_B_START + N_CLI]
     del frames
     loop_frames = render_loop()
     by_path["mono_loop"] = phase_mono_loop(dev, smi, loop_frames)
@@ -2181,7 +2307,7 @@ def main():
     by_path["mono_vi_async"] = phase_mono_vi(dev, smi, vi_data, async_mapping=True)
     del vi_data
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
-    by_path.update(phase_cli(dev, smi, cli_images))
+    by_path.update(phase_cli(dev, smi, cli_images, cli_b_images))
     by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
     by_path.update(tools)
@@ -2205,7 +2331,7 @@ def main():
                       "mono_vi": N_VI, "mono_vi_async": N_VI, "stereo_vi": N_STEREO_VI,
                       "fisheye_stereo": N_FISH, "fisheye_stereo_vi": N_FISH_STEREO_VI,
                       "fisheye_mono_vi": N_FISH_MONO_VI, "cli": N_CLI,
-                      "cli_b": 2 * N_CLI, "level0_step": N_FRAMES - 1,
+                      "cli_b": 2 * N_CLI, "cli_c": 2 * N_CLI, "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS}
     for r in records:

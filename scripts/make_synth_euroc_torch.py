@@ -21,7 +21,11 @@ for `python -m tpuslam_torch.run --dataset tum_vi --settings
 `write_euroc(seq, out)` and `write_tum_vi(seq, out)` write a given
 SyntheticSequence (any size, or frames the caller has rendered);
 `identity_rectification_yaml(seq)` gives LEFT./RIGHT. blocks that leave
-its pre-rectified pair unchanged.
+its pre-rectified pair unchanged. `SessionView(seq, start, n_frames, t0)`
+is a stretch of a sequence as a session of its own, stamped from t0, with
+its ground truth in the sequence's world frame: two views of one sequence
+written as two trees are a multi-session run over one place (`run --path
+A,B`, as EuRoC's MH01 -> MH02).
 """
 
 import argparse
@@ -39,18 +43,51 @@ from tpuslam_torch.io.png import write_png  # noqa: E402
 from tpuslam_torch.io.synthetic import SyntheticSequence  # noqa: E402
 
 
+class SessionView:
+    """Frames start .. start + n_frames - 1 of `seq` as a session of their own:
+    frame i is seq's frame start + i, stamped t0 + i / fps; its ground truth
+    and IMU are seq's at that instant, in seq's world frame. The camera, the
+    rig and the rates are seq's."""
+
+    def __init__(self, seq, start, n_frames, t0):
+        self.seq, self.start, self.n_frames, self.t0 = seq, start, n_frames, t0
+
+    def __getattr__(self, name):
+        if name == "seq":       # not set yet (copy, unpickling)
+            raise AttributeError(name)
+        return getattr(self.seq, name)
+
+    def _source_time(self, t):
+        return t - self.t0 + self.start / self.seq.fps
+
+    def timestamps(self):
+        return self.t0 + np.arange(self.n_frames) / self.seq.fps
+
+    def gt_pose_cw(self, t):
+        return self.seq.gt_pose_cw(self._source_time(t))
+
+    def frame(self, i, right=False):
+        return self.seq.frame(self.start + i, right=right)
+
+    def imu_between(self, t0, t1):
+        ts, ws, accs = self.seq.imu_between(self._source_time(t0), self._source_time(t1))
+        return ts + (t0 - self._source_time(t0)), ws, accs
+
+
 def write_tree(seq, out, images=None):
     """Write `seq`'s stereo frames, IMU and ground truth under out/mav0, the
-    layout that load_euroc and load_tum_vi read. images: the (left, right)
-    uint8 frames of `seq` where the caller has rendered them already."""
+    layout that load_euroc and load_tum_vi read, stamped with
+    seq.timestamps(). images: the (left, right) uint8 frames of `seq` where
+    the caller has rendered them already."""
     mav = os.path.join(out, "mav0")
     for sub in ("cam0/data", "cam1/data", "imu0",
                 "state_groundtruth_estimate0"):
         os.makedirs(os.path.join(mav, sub), exist_ok=True)
 
+    stamps = seq.timestamps()
     cam_rows = []
     for i in range(seq.n_frames):
-        t_ns = int(round(i / seq.fps * 1e9))
+        t_ns = int(round(stamps[i] * 1e9))
         name = f"{t_ns}.png"
         for c, right in (("cam0", False), ("cam1", True)):
             img = (np.clip(seq.frame(i, right=right), 0, 255).astype(np.uint8)
@@ -65,8 +102,7 @@ def write_tree(seq, out, images=None):
 
     # IMU at 200 Hz over the whole span (ref imu0/data.csv columns:
     # t, w_xyz [rad/s], a_xyz [m/s^2])
-    T = seq.n_frames / seq.fps
-    ts, ws, accs = seq.imu_between(-1e-9, T)
+    ts, ws, accs = seq.imu_between(stamps[0] - 1e-9, stamps[0] + seq.n_frames / seq.fps)
     with open(os.path.join(mav, "imu0", "data.csv"), "w") as fh:
         fh.write("#timestamp [ns],w_RS_S_x,w_RS_S_y,w_RS_S_z,"
                  "a_RS_S_x,a_RS_S_y,a_RS_S_z\n")
@@ -79,8 +115,7 @@ def write_tree(seq, out, images=None):
                            "data.csv"), "w") as fh:
         fh.write("#timestamp, p_RS_R_x [m], p_RS_R_y [m], p_RS_R_z [m], "
                  "q_RS_w [], q_RS_x [], q_RS_y [], q_RS_z []\n")
-        for i in range(seq.n_frames):
-            t = i / seq.fps
+        for t in stamps:
             Rcw, tcw = seq.gt_pose_cw(t)
             Rwc = Rcw.T
             p = -Rwc @ tcw

@@ -159,7 +159,8 @@ def test_run_main_rectified_two_sessions_async(tree, tmp_path):
         for x, y in zip(other.level_descs, voc.level_descs):
             assert np.array_equal(x, y)
         assert np.allclose(other.word_weight, voc.word_weight, rtol=1e-6, atol=1e-7)
-    # no vocabulary: with one the second session is recognised and merged
+    # no vocabulary, so no merge: two maps (with one, the second session is
+    # recognised and merged: tests/test_torch_atlas_merge.py)
     out = tmp_path / "kitti.txt"
     rep = run.main(["--dataset", "euroc", "--path", f"{path},{path}", "--settings", str(rect),
                     "--sensor", "stereo", "--max-frames", "6", "--async-mapping", "--pipelined", "--format", "kitti", "--output",

@@ -9,8 +9,8 @@
     blocked imports them all and writes a TUM-VI tree with
     make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
     matplotlib only when it draws). The helpers import nothing but the
-    port and numpy, and scripts/tum_vi_examples_torch.sh drives the port's
-    CLI.
+    port and numpy, and scripts/tum_vi_examples_torch.sh and
+    scripts/euroc_examples_torch.sh drive the port's CLI.
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
@@ -127,6 +127,16 @@ def test_tum_vi_runner_drives_the_port():
     assert "python -m tpuslam_torch.run --dataset tum_vi" in text
     assert "tpuslam.run" not in text
     assert '--device "${DEVICE:-cuda}"' in text
+
+
+def test_euroc_runner_drives_the_port():
+    """So does scripts/euroc_examples_torch.sh, its matrix and its
+    multi-session line alike."""
+    with open(os.path.join(ROOT, "scripts", "euroc_examples_torch.sh")) as fh:
+        text = fh.read()
+    assert text.count("python -m tpuslam_torch.run --dataset euroc") == 2
+    assert "tpuslam.run" not in text
+    assert text.count('--device "${DEVICE:-cuda}"') == 2
 
 
 def _cam():
