@@ -5,8 +5,9 @@
 Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
 levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
 mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
-distributed BA, the measuring tools, stereo-inertial, and TUM-VI's fisheye
-stereo-inertial and mono-inertial routes.
+distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
+stereo-inertial and mono-inertial routes, and the inertial mapper's whole
+IMU schedule.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -153,7 +154,7 @@ Phases, each raising on failure:
      pose solve at each padded row count) held against the plain versions:
      the gather bitwise, the pose LM with phase 2's tolerances.
  12. stereo-inertial: System.track_stereo(..., imu=) on an IMU_STEREO
-     System over 42 frames of the heave sequence (tests/torch_vi_heave.py:
+     System over 34 frames of the heave sequence (tests/torch_vi_heave.py:
      vi_excite plus a 0.10 m vertical heave at 4 rad/s, which passes the
      stereo-inertial init gate; 10 fps, 0.5 m/s, IMU at 200 Hz) at 752x480
      with the phase constants' rig (fx = fy = 458, baseline 0.11 m),
@@ -171,7 +172,7 @@ Phases, each raising on failure:
      tolerances), and the last (4 rounds) timed as in phase 2.
  13. fisheye stereo-inertial, TUM-VI's main configuration:
      System(KB8, IMU_STEREO, camera2=, Tlr=).track_stereo(..., imu=) over
-     37 frames of the heave sequence seen by phase 8's rig
+     36 frames of the heave sequence seen by phase 8's rig
      (tests/torch_fisheye_rig.py at 512x512, 0.2 m baseline), at 10 fps
      (cut from TUM-VI's 20 Hz: the IMU init needs 10 keyframes and 2 s of
      them), IMU at 200 Hz, phase 7's ImuCalib, 1024 features, the CPU
@@ -196,6 +197,28 @@ Phases, each raising on failure:
      pose-LM launch, phase 13's solver routes, the patch gather held
      against its plain version on frame 0, and phase 13's figures with the
      two-view init frame.
+ 15. the inertial mapper's whole schedule: scripts/vi_f32_experiment_torch.
+     run (tpuslam's vi_f32_experiment.py run: mono-inertial on vi_excite at
+     0.3 m/s, 376x240, 600 features, IMU at 200 Hz, f32) over 64 frames with
+     the schedule shortened to the script's SHORT_SCHEDULE (VIBA1 0.5 s and
+     VIBA2 1.0 s after the IMU init, for 5 s and 15 s): it must end OK with
+     the IMU initialized, the mapper's events imu_init, viba1, viba2 in that
+     order, at least one scale refinement and one local inertial BA with
+     zero bias priors after VIBA2, the script's RESULT rule (scaled ATE
+     under 0.15 m, OK, trajectory rows over 0.9 x frames), |R[2, 2]| > 0.99
+     and finite keyframe poses, velocities and biases; every fused
+     visual-inertial frame makes 1 patch-gather and 4 pose-LM launches and
+     at least one pose_inertial_solve. The script prints the events, the
+     refinements, the largest |R^T R - I| of the keyframes and the stage
+     ms. Both kernels are held against their plain versions on what this
+     path gave them: frame 0's patch gather (K = 600 over 8 levels of
+     376x240, bitwise) and the first fused VI frame's 4 pose-LM calls
+     (mono rows, phase 2's tolerances), the last of them timed as in
+     phase 2. It runs in a process of its own (PhaseInChild) at the same
+     time as phases 9 and 10, so the three phases' times are taken while
+     they share the host's cores and the card. The script's full 220-frame
+     runs take ~10 min each on an H100, so they run on their own, not
+     here.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
@@ -204,7 +227,8 @@ sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes; phase 7
 (b) as mono_vi_async, phase 9's runs as cli, cli_b and cli_c, phase 12 as
 stereo_vi with its first fused frame's
 pose-LM calls as stereo_vi_shapes, phases 13-14 as fisheye_stereo_vi and
-fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes), the
+fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes, phase
+15 as vi_schedule with its kernel inputs in vi_schedule_shapes), the
 nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
@@ -213,11 +237,12 @@ import contextlib
 import io
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
+
+from tpuslam_torch.utils.probes import gt_centers, nvidia_smi_line, vi_counts
 
 H, W = 480, 752
 N_FEATURES = 1024
@@ -264,21 +289,20 @@ DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's ru
 N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
 N_BENCH = 40           # phase 11 (c): bench_torch's frames (a warm pass and one timed)
 N_SENSORS = 20         # phase 11 (d): bench_sensors_torch's RGB-D frames (two passes)
-N_STEREO_VI = 42       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
+N_STEREO_VI = 34       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
 # phases 13-14: TUM-VI's fisheye visual-inertial routes at FISH_WH, cut from
 # TUM-VI's 20 Hz to 10 fps: the IMU init needs 10 keyframes and 2 s of them
-N_FISH_STEREO_VI, N_FISH_MONO_VI, FISH_VI_FPS = 37, 33, 10   # the IMU init + ~8 frames
+N_FISH_STEREO_VI, N_FISH_MONO_VI, FISH_VI_FPS = 36, 33, 10   # the IMU init + ~7-8 frames
+# phase 15: frames of scripts/vi_f32_experiment_torch.py's run. Its RESULT rule
+# wants trajectory rows > 0.9 x frames; at 0.3 m/s the two-view init takes 6
+# frames on the card and on the CPU, so 64 frames leave 58 rows against 57.6.
+# The shortened schedule ends by ~45
+N_VI_SCHEDULE = 64
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
 def log(*a):
     print(*a, flush=True)
-
-
-def nvidia_smi_line():
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, n=N_TIMED, warmup=3):
@@ -406,18 +430,77 @@ def _render_part(seq, idx, kind):
     return [u8(seq.frame(i)) for i in idx]
 
 
+_render_pool = None
+
+
+def stop_render_pool():
+    """End render()'s worker processes (main() does so before it returns)."""
+    global _render_pool
+    if _render_pool is not None:
+        _render_pool.shutdown()
+        _render_pool = None
+
+
+def _phase_in_child(queue, name, args):
+    """Body of PhaseInChild's process: run phase function `name`(*args) and
+    put ("ok", what it returned) or ("error", the traceback) on queue. The
+    kernels and the native map core load from what the parent built."""
+    import traceback
+
+    try:
+        queue.put(("ok", globals()[name](*args)))
+    except BaseException:
+        queue.put(("error", traceback.format_exc()))
+    finally:
+        stop_render_pool()
+
+
+class PhaseInChild:
+    """Phase function `name`(*args) in a spawned process of its own, beside
+    the parent's next phases: every phase is bound by the host, and the card
+    idles most of the time. result() waits for it and returns what the
+    phase returned; a phase that raised raises here."""
+
+    def __init__(self, name, *args):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self.name, self.queue = name, ctx.Queue()
+        self.proc = ctx.Process(target=_phase_in_child, args=(self.queue, name, args))
+        self.proc.start()
+
+    def result(self, timeout=1200.0):
+        import queue
+
+        try:
+            status, value = self.queue.get(timeout=timeout)
+        except queue.Empty:
+            status, value = "error", f"no result in {timeout} s, exit code {self.proc.exitcode}"
+        finally:
+            self.proc.join(timeout=60.0)
+            if self.proc.is_alive():
+                self.proc.terminate()
+                self.proc.join()
+        check(status == "ok", f"{self.name} in its own process failed:\n{value}")
+        return value
+
+
 def render(seq, n, kind="mono"):
     """Frames 0..n-1 of seq (see _render_part), in order. The renderer is
     numpy on the host, one frame at a time, so RENDER_WORKERS spawned
-    processes share the frames; all of them end before this returns."""
+    processes share the frames. They are started on the first call and kept
+    for the next phases (each takes seconds to import before its first
+    frame) until stop_render_pool()."""
+    global _render_pool
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
 
+    if _render_pool is None:
+        _render_pool = ProcessPoolExecutor(RENDER_WORKERS,
+                                           mp_context=multiprocessing.get_context("spawn"))
     parts = [range(w, n, RENDER_WORKERS) for w in range(RENDER_WORKERS)]
-    with ProcessPoolExecutor(RENDER_WORKERS,
-                             mp_context=multiprocessing.get_context("spawn")) as pool:
-        done = list(pool.map(_render_part, [seq] * RENDER_WORKERS, parts,
-                             [kind] * RENDER_WORKERS))
+    done = list(_render_pool.map(_render_part, [seq] * RENDER_WORKERS, parts,
+                                 [kind] * RENDER_WORKERS))
     frames = [None] * n
     for part, got in zip(parts, done):
         for i, frame in zip(part, got):
@@ -869,10 +952,6 @@ def stage_table(name, timer):
             f"{st['total_s'] * 1e3:10.1f} ms")
 
 
-def gt_centers(seq, traj):
-    return np.array([-seq.gt_pose_cw(r[0])[0].T @ seq.gt_pose_cw(r[0])[1] for r in traj])
-
-
 def loop_sequence():
     from tpuslam_torch.io.synthetic import SyntheticSequence
 
@@ -1211,19 +1290,6 @@ def vi_config():
                                               init_window=base.init_window * W / 376.0))
 
 
-def vi_counts():
-    """Kernel launches, then the tracker's timed stages: one "pose_inertial"
-    sample per pose-inertial solve (plain torch), the fused VI step and the
-    host path."""
-    from tpuslam_torch.ops import patch_cuda
-    from tpuslam_torch.solve import pose_opt_cuda
-    from tpuslam_torch.utils.timing import GLOBAL_TIMER
-
-    return (patch_cuda.counter.launches, pose_opt_cuda.counter.launches,
-            *(len(GLOBAL_TIMER.samples.get(s, []))
-              for s in ("pose_inertial", "track_fused_vi", "track")))
-
-
 def count_rebases(tracker):
     """Wrap tracker._sync_imu_from_map to count the handshakes that rebased
     the last frame (a new pose from the map's last keyframe); returns the
@@ -1353,6 +1419,48 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     return launches
 
 
+def fused_vi_lm_compare(calls, what, smi):
+    """The pose LM on the inputs a path's first fused VI frame gave it
+    (its 4 calls, (args, kwargs) each): every call held against the plain
+    version (pose_lm_compare), the last (4 rounds) timed as in phase 2
+    beside its bound. Returns the records by call, with max_abs_err."""
+    import torch
+
+    from tpuslam_torch.solve import pose_opt_cuda
+
+    shapes, worst = {}, 0.0
+    for j, (a, kw) in enumerate(calls):
+        eR, et, agree, _, rounds = pose_lm_compare(pose_opt_cuda.pose_optimize_fused, a,
+                                                   f"{what} call {j}", kw)
+        worst = max(worst, eR, et)
+        st = a[5] & a[6]
+        n_valid = int(a[6].sum())
+        valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
+        shapes[f"call_{j}"] = dict(n=int(a[2].shape[0]), valid=valid_by, n_rounds=kw["n_rounds"],
+                                   dR=eR, dt=et, agreement=agree,
+                                   steps=[r["steps"] for r in rounds],
+                                   in_use=[(r["mono"], r["stereo"]) for r in rounds],
+                                   flops=pose_lm_ops(rounds, valid_by))
+        log(f"[{what}] pose LM call {j} of the first fused VI frame (N={a[2].shape[0]}, "
+            f"valid {valid_by}, {kw['n_rounds']} rounds): |dR| {eR:.3g} |dt| {et:.3g} inlier "
+            f"agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
+    a, kw = calls[-1]
+    args32 = [x.to(torch.float32).contiguous() for x in a[:5]] + list(a[5:])
+    fused_call = lambda: pose_opt_cuda.pose_optimize_fused(*args32, **kw)  # noqa: E731
+    host_ms, dev_ms, plain_ms = pose_lm_times(
+        fused_call, fused_call, lambda: pose_opt_cuda.pose_optimize_plain(*args32, **kw))
+    rec = shapes[f"call_{len(calls) - 1}"]
+    n_bytes = pose_lm_bytes(rec["n"])
+    b_ms, b_by, b_res = bound(n_bytes, rec["flops"])
+    rec.update(ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               bytes=n_bytes)
+    log(f"[{what}] pose LM on the first fused VI frame's last call: kernel device "
+        f"{dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
+        f"{b_ms:.7f} ms ({rec['flops']} f32 operations, {n_bytes} bytes: {b_res}); the bound "
+        f"is {b_ms / dev_ms:.5f} of the device time; card {smi}")
+    return dict(shapes, max_abs_err=worst)
+
+
 def phase_stereo_vi(dev, smi):
     """Phase 12: System.track_stereo(..., imu=) on an IMU_STEREO System over
     the heave sequence (tests/torch_vi_heave.py) at full width; the pose-LM
@@ -1368,7 +1476,6 @@ def phase_stereo_vi(dev, smi):
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.eval.ate import horn_align
     from tpuslam_torch.imu.preintegration import ImuCalib
-    from tpuslam_torch.solve import pose_opt_cuda
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
@@ -1454,41 +1561,9 @@ def phase_stereo_vi(dev, smi):
     check(all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
           "stereo_vi: a fused VI frame did not make 4 pose-LM launches and one "
           "pose_inertial_solve")
-    # the pose LM on the inputs the first fused VI frame gave it
-    shapes, worst = {}, 0.0
-    for j, (a, kw) in enumerate(captured):
-        eR, et, agree, _, rounds = pose_lm_compare(pose_opt_cuda.pose_optimize_fused, a,
-                                                   f"stereo_vi call {j}", kw)
-        worst = max(worst, eR, et)
-        st = a[5] & a[6]
-        n_valid = int(a[6].sum())
-        valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
-        shapes[f"call_{j}"] = dict(n=int(a[2].shape[0]), valid=valid_by, n_rounds=kw["n_rounds"],
-                                   dR=eR, dt=et, agreement=agree,
-                                   steps=[r["steps"] for r in rounds],
-                                   in_use=[(r["mono"], r["stereo"]) for r in rounds],
-                                   flops=pose_lm_ops(rounds, valid_by))
-        log(f"[stereo_vi] pose LM call {j} of the first fused VI frame (N={a[2].shape[0]}, "
-            f"valid {valid_by}, {kw['n_rounds']} rounds): |dR| {eR:.3g} |dt| {et:.3g} inlier "
-            f"agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
-    # the last call (4 rounds) timed as in phase 2
-    a, kw = captured[-1]
-    args32 = [x.to(torch.float32).contiguous() for x in a[:5]] + list(a[5:])
-    fused_call = lambda: pose_opt_cuda.pose_optimize_fused(*args32, **kw)  # noqa: E731
-    host_ms, dev_ms, plain_ms = pose_lm_times(
-        fused_call, fused_call, lambda: pose_opt_cuda.pose_optimize_plain(*args32, **kw))
-    rec = shapes[f"call_{len(captured) - 1}"]
-    n_bytes = pose_lm_bytes(rec["n"])
-    b_ms, b_by, b_res = bound(n_bytes, rec["flops"])
-    rec.update(ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               bytes=n_bytes)
-    log(f"[stereo_vi] pose LM on the first fused VI frame's last call: kernel device "
-        f"{rec['device_ms']:.5f} ms, host-inclusive {rec['ms']:.5f} ms; plain "
-        f"{rec['plain_ms']:.4f} ms; bound {b_ms:.7f} ms ({rec['flops']} f32 operations, "
-        f"{n_bytes} bytes: {b_res}); the bound is {b_ms / rec['device_ms']:.5f} of the device "
-        f"time; card {smi}")
+    shapes = fused_vi_lm_compare(captured, "stereo_vi", smi)
     log(f"[stereo_vi] phase 12 in {time.perf_counter() - t_phase:.1f} s")
-    return launches, dict(shapes, max_abs_err=worst)
+    return launches, shapes
 
 
 def fisheye_vi_config():
@@ -1650,6 +1725,89 @@ def phase_fisheye_vi(dev, smi, stereo):
           f"{name}: {len(post)} frames after the IMU init, or one without a KB8 "
           f"pose_inertial_solve")
     log(f"[{name}] phase {13 if stereo else 14} in {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes
+
+
+def phase_vi_schedule(dev, smi):
+    """Phase 15: scripts/vi_f32_experiment_torch.run, mono-inertial over
+    N_VI_SCHEDULE frames of its sequence (376x240, 600 features) on the card
+    in f32, with the inertial mapper's schedule shortened (the script's
+    SHORT_SCHEDULE) so that the run crosses all of it: the IMU init, a scale
+    refinement, VIBA1, VIBA2 and the zero-prior local inertial BAs after it.
+    Both kernels are held against their plain versions on what this path
+    gave them: frame 0's patch gather (bitwise) and the first fused VI
+    frame's pose-LM calls (phase 2's tolerances), the last of them timed as
+    in phase 2. Returns the launch counts and those records."""
+    import torch
+
+    from tpuslam_torch.engine import track_device
+    from tpuslam_torch.engine.config import InertialConfig
+    from tpuslam_torch.eval.ate import horn_align
+    from tpuslam_torch.ops import orb
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts"))
+    import vi_f32_experiment_torch as script
+
+    t_phase = time.perf_counter()
+    # frame 0's patch gather, and the pose-LM calls of the first fused VI
+    # frame: with an IMU every fused-step call is a fused VI frame's, and
+    # that frame's "track_fused_vi" sample lands after its calls
+    gathers, calls = [], []
+    real_gather, real_lm = orb.extract_patches_levels, track_device.pose_optimize_fused
+
+    def captured_gather(levels, yx, budgets, size):
+        if not gathers:
+            gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets), size))
+        return real_gather(levels, yx, budgets, size)
+
+    def captured_lm(*a, **kw):
+        if not GLOBAL_TIMER.samples.get("track_fused_vi"):
+            calls.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
+        return real_lm(*a, **kw)
+
+    orb.extract_patches_levels, track_device.pose_optimize_fused = captured_gather, captured_lm
+    reset_counts()
+    try:
+        res = script.run(N_VI_SCHEDULE, stereo=False, device=dev,
+                         inertial=InertialConfig(**script.SHORT_SCHEDULE),
+                         log=lambda line: log(f"[vi_schedule] {line.strip()}"))
+        torch.cuda.synchronize()
+        launches = counts_now()
+    finally:
+        orb.extract_patches_levels, track_device.pose_optimize_fused = real_gather, real_lm
+    m = res["slam"].map
+    kfs = m.valid_kf_ids()
+    R, _, s, _ = horn_align(res["est"], res["gt"], True)
+    fused = [r for r in res["rows"] if r["fused_vi"] and not r["host"]]
+    events = [e["event"] for e in res["events"]]
+    log(f"[vi_schedule] schedule {script.SHORT_SCHEDULE}: events "
+        f"{[(e['event'], e['frame']) for e in res['events']]} (event, frame), scale refinements "
+        f"{res['refinements']}, zero-prior local inertial BAs {res['zero_prior_local_ba']}, "
+        f"max |R^T R - I| {res['orthonormality']:.3e}, Horn scale {s:.5f}, |R[2,2]| "
+        f"{abs(R[2, 2]):.6f}; launches {launches}, fused VI frames {len(fused)}; card {smi}")
+    check(res["state"] == "OK" and m.imu_initialized,
+          "vi_schedule: not OK, or the IMU never initialized")
+    check(events == ["imu_init", "viba1", "viba2"], f"vi_schedule: mapper events {events}")
+    check(res["refinements"] >= 1, "vi_schedule: no scale refinement")
+    check(res["zero_prior_local_ba"] >= 1, "vi_schedule: no zero-prior local inertial BA")
+    check(res["ok"], f"vi_schedule: RESULT FAIL (scaled ATE {res['rmse']}, state "
+          f"{res['state']}, {len(res['traj'])} trajectory rows)")
+    check(abs(R[2, 2]) > 0.99, f"vi_schedule: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(all(np.isfinite(np.asarray(getattr(m, f))[kfs]).all()
+              for f in ("kf_R", "kf_t", "kf_vel", "kf_bg", "kf_ba")),
+          "vi_schedule: a keyframe state is not finite")
+    check(len(fused) >= 1 and all(r["patch"] == 1 and r["pose"] == 4 and r["vi_solves"] >= 1
+                                  for r in fused),
+          "vi_schedule: a fused VI frame did not make 1 patch-gather and 4 pose-LM launches "
+          "and a pose-inertial solve")
+    # both kernels on the inputs this path gave them
+    check(len(gathers) == 1 and len(calls) == 4,
+          f"vi_schedule: {len(gathers)} patch gathers and {len(calls)} pose-LM calls of the "
+          f"first fused VI frame captured")
+    shapes = {"patch_gather": patch_compare(*gathers[0], "vi_schedule 376x240 frame 0")}
+    shapes["pose_lm"] = fused_vi_lm_compare(calls, "vi_schedule", smi)
+    log(f"[vi_schedule] phase 15 in {time.perf_counter() - t_phase:.1f} s")
     return launches, shapes
 
 
@@ -2266,7 +2424,11 @@ def main():
     log(f"[card] {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"{torch.cuda.get_device_name(0)}")
 
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    # the repo and tests/ (the sequence helpers whose objects the render
+    # workers unpickle); spawned processes take sys.path as it is when they
+    # start
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path[:0] = [here, os.path.join(here, "tests")]
     from tpuslam_torch import _build, native
     from tpuslam_torch.io.synthetic import SyntheticSequence
 
@@ -2307,8 +2469,13 @@ def main():
     by_path["mono_vi_async"] = phase_mono_vi(dev, smi, vi_data, async_mapping=True)
     del vi_data
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
-    by_path.update(phase_cli(dev, smi, cli_images, cli_b_images))
-    by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
+    # phase 15 runs in a process of its own beside phases 9 and 10
+    vi_schedule = PhaseInChild("phase_vi_schedule", dev, smi)
+    try:
+        by_path.update(phase_cli(dev, smi, cli_images, cli_b_images))
+        by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
+    finally:
+        by_path["vi_schedule"], vi_schedule_shapes = vi_schedule.result()
     tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
     by_path.update(tools)
     by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
@@ -2319,18 +2486,23 @@ def main():
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
-    patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"]]
+    patch["vi_schedule_shapes"] = vi_schedule_shapes["patch_gather"]
+    patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
+                                patch["vi_schedule_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
-    lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err")]
+    lm["vi_schedule_shapes"] = vi_schedule_shapes["pose_lm"]
+    lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
+                             lm["vi_schedule_shapes"].pop("max_abs_err")]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
                       "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
                       "mono_vi": N_VI, "mono_vi_async": N_VI, "stereo_vi": N_STEREO_VI,
                       "fisheye_stereo": N_FISH, "fisheye_stereo_vi": N_FISH_STEREO_VI,
-                      "fisheye_mono_vi": N_FISH_MONO_VI, "cli": N_CLI,
+                      "fisheye_mono_vi": N_FISH_MONO_VI, "vi_schedule": N_VI_SCHEDULE,
+                      "cli": N_CLI,
                       "cli_b": 2 * N_CLI, "cli_c": 2 * N_CLI, "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS}
@@ -2349,4 +2521,8 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        stop_render_pool()
+    sys.exit(code)

@@ -12,7 +12,8 @@
     port and numpy, and scripts/tum_vi_examples_torch.sh and
     scripts/euroc_examples_torch.sh drive the port's CLI.
   * Every entry point defaults to the card: without one it raises, it
-    never carries on on the CPU.
+    never carries on on the CPU. scripts/vi_f32_experiment_torch.py's
+    --stereo takes the heave trajectory of tests/torch_vi_heave.py.
   * The port's own copies of tpuslam's jax-free helpers (utils/pad,
     parallel/async_mapping, the native map core) behave as tpuslam's do.
   * A matrix that torch.linalg cannot factorize gives NaN results, as in
@@ -60,7 +61,8 @@ import bench_sensors_torch
 import bench_frontend_torch
 scripts = {}
 for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torch.py",
-               "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py"):
+               "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py",
+               "scripts/vi_f32_experiment_torch.py"):
     spec = importlib.util.spec_from_file_location("script", script)
     scripts[script] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(scripts[script])
@@ -77,6 +79,9 @@ from tpuslam_torch.io.datasets import load_tum_vi
 from tpuslam_torch.io.settings import load_settings
 assert len(load_tum_vi(out, stereo=True, with_imu=True)) == 2
 assert load_settings(out + "/tum_vi.yaml").camera2.kind == "kb8"
+# the long VI run's --stereo sequence (the heave helper, imported by the script)
+vi_f32 = scripts["scripts/vi_f32_experiment_torch.py"]
+assert type(vi_f32.sequence(3, stereo=True).traj) is torch_vi_heave.HeaveTrajectory
 loaded = {k for k, v in sys.modules.items() if v is not None}
 assert not {k for k in loaded if k.split(".")[0] in BLOCKED}, loaded
 assert {"tpuslam_torch.run", "tpuslam_torch.io.settings", "tpuslam_torch.io.datasets",
@@ -206,6 +211,14 @@ def _entry(name):
         return _run_main()
     if name in ("dist_ba_solve", "dist_viba_solve"):
         return _dist_entry(name)
+    if name.startswith("vi_f32_experiment."):
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "vi_f32_experiment_torch", os.path.join(ROOT, "scripts", "vi_f32_experiment_torch.py"))
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        return script.run(2) if name.endswith(".run") else script.main(["--frames", "2"])
     if name == "match_padded":
         return match_padded(np.zeros((0, 32), np.uint8), np.zeros((3, 32), np.uint8),
                             np.zeros((0, 3), bool))
@@ -261,7 +274,8 @@ def _run_main():
                                   "optimize_essential_graph", "match_padded",
                                   "preintegrate_window", "run_imu_init", "window_inertial_ba",
                                   "full_inertial_ba", "local_inertial_ba", "run.main",
-                                  "dist_ba_solve", "dist_viba_solve"])
+                                  "dist_ba_solve", "dist_viba_solve", "vi_f32_experiment.run",
+                                  "vi_f32_experiment.main"])
 def test_entry_points_default_to_the_card(name):
     if torch.cuda.is_available():
         obj = _entry(name)
