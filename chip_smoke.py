@@ -6,8 +6,8 @@ Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
 levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
 mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
 distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
-stereo-inertial and mono-inertial routes, and the inertial mapper's whole
-IMU schedule.
+stereo-inertial and mono-inertial routes, the inertial mapper's whole
+IMU schedule, and the multi-session stereo-inertial merge.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -218,7 +218,32 @@ Phases, each raising on failure:
      time as phases 9 and 10, so the three phases' times are taken while
      they share the host's cores and the card. The script's full 220-frame
      runs take ~10 min each on an H100, so they run on their own, not
-     here.
+     here;
+ 16. two stereo-inertial sessions over one place merged into one Atlas
+     map (tests/torch_vi_merge.py; 752x480, 1024 features, f32): (a) its
+     heave_sessions, the second session trailing the first by 6 frames so
+     that it sees the first long before its own IMU init, written as two
+     EuRoC trees with IMU and run by `run.main --sensor stereo_imu --path
+     A,B --vocab` (a vocabulary trained here; the settings make a keyframe
+     at least every 10 frames, so each session is ~8-10 s); (b) its
+     loop_sessions, the second session coming round a circle to the first
+     only after its own IMU init and VIBA1 (the short schedule), through
+     System.track_stereo(..., imu=). Each must make exactly one merge,
+     inside the second session and with its IMU initialized ((b): after
+     VIBA1), the map count 2 -> 1, end OK with nothing left in the young
+     map, and pass the stereo-inertial gates on one alignment of both
+     sessions' rows (unscaled ATE under 5 cm, Horn scale within 3 %,
+     |R[2, 2]| > 0.99, median KF velocity error under 0.2 m/s, finite
+     keyframe states); every frame makes 2 patch-gather launches, every
+     fused VI frame 4 pose-LM launches and one pose_inertial_solve. On the
+     first fused VI frame after the merge both kernels are held against
+     their plain versions (its two patch gathers bitwise, its 4 pose-LM
+     calls with phase 2's tolerances) and timed. The IMU events, the merges
+     aborted before the young map's init, the merge's Sim3 scale and the
+     rotation the yaw projection removed, the weld's size, the stage table
+     and the second session's frame ms before and after the merge are
+     printed. Both branches run in processes of their own (PhaseInChild)
+     beside phases 11-13, as does phase 14.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
@@ -228,8 +253,9 @@ sensors_rgbd, and phase 11 (d)'s shapes as sensors_rgbd_shapes; phase 7
 stereo_vi with its first fused frame's
 pose-LM calls as stereo_vi_shapes, phases 13-14 as fisheye_stereo_vi and
 fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes, phase
-15 as vi_schedule with its kernel inputs in vi_schedule_shapes), the
-nvidia-smi line
+15 as vi_schedule with its kernel inputs in vi_schedule_shapes, phase 16
+as vi_merge_a and vi_merge_b with the kernel inputs of their first fused VI
+frame after the merge in vi_merge_shapes), the nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -298,6 +324,14 @@ N_FISH_STEREO_VI, N_FISH_MONO_VI, FISH_VI_FPS = 36, 33, 10   # the IMU init + ~7
 # frames on the card and on the CPU, so 64 frames leave 58 rows against 57.6.
 # The shortened schedule ends by ~45
 N_VI_SCHEDULE = 64
+# phase 16: (A's frames, the second session's first frame in the sequence, its
+# frames) of branch a (tests/torch_vi_merge.py's heave_sessions through the
+# CLI, whose settings make a keyframe at least every 10 frames: A's IMU
+# initializes on its frame 79, B's on its frame 83, the merge two keyframes
+# later on B's frame 103) and branch b (its loop_sessions, a keyframe at least
+# every 3 frames: C's init on its frame 25, the merge on its frame 58); each
+# second session ends ~10 frames after its merge
+N_VI_MERGE = {"a": (84, 6, 114), "b": (33, 45, 68)}
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
@@ -1811,6 +1845,297 @@ def phase_vi_schedule(dev, smi):
     return launches, shapes
 
 
+class vi_merge_probe:
+    """Phase 16's instruments: per-frame rows (launches, solves, state, map
+    count, host wall ms) of every System attached to it, with run.main's
+    System attached as it is built; the merges its loop closer corrects and
+    the parts of the inertial merge route (the Sim3 before the gates and the
+    rotation the yaw projection removed, the essential graph's DoF, the weld
+    BA's size, the GBA snapshot's kind); and the kernel inputs of the first
+    fused visual-inertial frame after each merge (its patch gathers and its
+    4 pose-LM calls)."""
+
+    def __enter__(self):
+        import torch
+
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import loop_closing, track_device
+        from tpuslam_torch.ops import orb
+
+        self.rows, self.wall, self.merges, self.tries, self.parts = [], [], [], [], []
+        self.captured, self.systems = [], []
+        probe, frame_gathers, frame_lm, raw = self, [], [], [None]
+        LC = loop_closing.LoopCloser
+        self.saved = dict(gather=orb.extract_patches_levels, lm=track_device.pose_optimize_fused,
+                          System=run.System, try_loop=LC._try_loop, correct=LC._correct_loop,
+                          snapshot=LC._snapshot_gba,
+                          **{n: getattr(loop_closing, n) for n in
+                             ("optimize_sim3", "optimize_essential_graph",
+                              "window_inertial_ba")})
+        sv = self.saved
+
+        def pending():
+            return len(probe.captured) < len(probe.merges)
+
+        def gather(levels, yx, budgets, size):
+            if pending():
+                frame_gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets),
+                                      size))
+            return sv["gather"](levels, yx, budgets, size)
+
+        def lm(*a, **kw):
+            if pending():
+                frame_lm.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
+            return sv["lm"](*a, **kw)
+
+        def attach(slam):
+            real = slam.track_stereo
+
+            def track_stereo(*a, **kw):
+                before, init = vi_counts(), slam.map.imu_initialized
+                frame_gathers.clear()
+                frame_lm.clear()
+                t0 = time.perf_counter()
+                out = real(*a, **kw)
+                probe.wall.append((time.perf_counter() - t0) * 1e3)
+                row = dict(initialized=init, state=slam.get_tracking_state().name,
+                           maps=len(slam.map.map_ids()),
+                           **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
+                                      (x - y for x, y in zip(vi_counts(), before)))))
+                probe.rows.append(row)
+                if pending() and row["fused_vi"] and not row["host"] and len(frame_lm) == 4:
+                    probe.captured.append((list(frame_gathers), list(frame_lm),
+                                           len(probe.rows) - 1))
+                return out
+
+            slam.track_stereo = track_stereo
+            probe.systems.append(slam)
+            return slam
+
+        class Probed(sv["System"]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                attach(self)
+
+        def try_loop(closer, kf, cand, merge=False):
+            raw[0] = None
+            out = sv["try_loop"](closer, kf, cand, merge=merge)
+            if merge and raw[0] is not None:
+                s, R = raw[0]
+                removed = None
+                if out is not None:
+                    R_kept = out["sim3"][1]
+                    removed = float(np.arccos(np.clip((np.trace(R.T @ R_kept) - 1) / 2, -1, 1)))
+                probe.tries.append(dict(frame=len(probe.rows), kf=int(kf), cand=int(cand),
+                                        s=s, ok=out is not None, yaw_removed=removed))
+            return out
+
+        def correct(closer, kf, cand, *a, merge=False, **kw):
+            m = closer.map
+            if merge:
+                probe.merges.append(dict(frame=len(probe.rows), kf=int(kf), cand=int(cand),
+                                         imu=bool(m.imu_initialized), ba1=bool(m.inertial_ba1),
+                                         aborted_before=list(closer.merges_aborted)))
+            t0 = time.perf_counter()
+            out = sv["correct"](closer, kf, cand, *a, merge=merge, **kw)
+            if merge:
+                probe.merges[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+
+        def snapshot(closer, fix_kf):
+            snap = sv["snapshot"](closer, fix_kf)
+            probe.parts.append(("gba", None if snap is None else snap.get("kind", "visual")))
+            return snap
+
+        def opt(*a, **kw):
+            out = sv["optimize_sim3"](*a, **kw)
+            raw[0] = (float(out[0]), out[1].cpu().numpy().astype(np.float64))
+            return out
+
+        def graph(*a, **kw):
+            probe.parts.append(("essential_graph", dict(four_dof=bool(kw["four_dof"]),
+                                                        fixed=len(kw["fix_kfs"]))))
+            return sv["optimize_essential_graph"](*a, **kw)
+
+        def weld(*a, **kw):
+            probe.parts.append(("weld", dict(optimized=len(kw["opt_kfs"]),
+                                             fixed=len(kw["fixed_kfs"]))))
+            return sv["window_inertial_ba"](*a, **kw)
+
+        self.attach = attach
+        orb.extract_patches_levels, track_device.pose_optimize_fused = gather, lm
+        run.System = Probed
+        LC._try_loop, LC._correct_loop, LC._snapshot_gba = try_loop, correct, snapshot
+        loop_closing.optimize_sim3 = opt
+        loop_closing.optimize_essential_graph = graph
+        loop_closing.window_inertial_ba = weld
+        return self
+
+    def __exit__(self, *exc):
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import loop_closing, track_device
+        from tpuslam_torch.ops import orb
+
+        sv, LC = self.saved, loop_closing.LoopCloser
+        orb.extract_patches_levels, track_device.pose_optimize_fused = sv["gather"], sv["lm"]
+        run.System = sv["System"]
+        LC._try_loop, LC._correct_loop, LC._snapshot_gba = (sv["try_loop"], sv["correct"],
+                                                            sv["snapshot"])
+        for n in ("optimize_sim3", "optimize_essential_graph", "window_inertial_ba"):
+            setattr(loop_closing, n, sv[n])
+
+
+def phase_vi_merge(dev, smi, branch):
+    """Phase 16: two stereo-inertial sessions over one place merged into one
+    Atlas map, at full width (f32). branch "a": tests/torch_vi_merge.py's
+    heave_sessions (the second session sees the first from its first
+    frames, long before its own IMU init) written as two EuRoC trees, a
+    vocabulary trained here, `run.main --sensor stereo_imu --path A,B
+    --vocab`; "b": its loop_sessions (the second session comes round to
+    the first only after its own IMU init and VIBA1, the short schedule)
+    through System.track_stereo(..., imu=). Gates: one merge, inside the
+    second session and with its IMU initialized ((b): after its VIBA1), the
+    map count 2 -> 1, OK at the end, nothing left in the young map, the
+    stereo-inertial gates on one alignment of both sessions' rows, 2 patch
+    gathers per frame and 4 pose LMs and a pose_inertial_solve per fused VI
+    frame; the first fused VI frame after the merge holds both kernels
+    against their plain versions. Returns the launch counts and the kernel
+    records."""
+    import shutil
+
+    import torch
+
+    from tpuslam_torch import _build, run
+    from tpuslam_torch.cameras import Pinhole
+    from tpuslam_torch.engine.config import InertialConfig, LoopConfig
+    from tpuslam_torch.engine.system import Sensor, System
+    from tpuslam_torch.imu.preintegration import ImuCalib
+    from tpuslam_torch.place import save_orbvoc_text
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_vi_merge as vm
+
+    torch.set_num_threads(2)
+    name = f"vi_merge_{branch}"
+    t_phase = time.perf_counter()
+    n_a, start, n_b = N_VI_MERGE[branch]
+    kw = dict(height=H, width=W, fx=FX, fy=FY)
+    seq, sessions = (vm.heave_sessions(n_a, start, n_b, **kw) if branch == "a"
+                     else vm.loop_sessions(n_a, start, n_b, **kw))
+    frames = render(seq, seq.n_frames, "stereo")
+    voc = vm.vocabulary(seq, N_FEATURES, device=dev,
+                        frames=[frames[i][0] for i in range(0, seq.n_frames,
+                                                            seq.n_frames // vm.VOCAB_FRAMES)])
+    log(f"[{name}] rendered {seq.n_frames} stereo frames {W}x{H} ({seq.traj.kind} heave, "
+        f"{seq.traj.speed} m/s) and trained a vocabulary in {time.perf_counter() - t_phase:.1f} s;"
+        f" sessions: frames 0..{n_a - 1}, then {start}..{start + n_b - 1} from "
+        f"{vm.T0_SECOND} s")
+    root = _build.BUILD_DIR.parent / name
+    with vi_merge_probe() as probe:
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        if branch == "a":
+            script = vm.synth_script()
+            shutil.rmtree(root, ignore_errors=True)
+            trees = [str(root / s) for s in ("MH01", "MH02")]
+            for sess, tree in zip(sessions, trees):
+                yaml_path = script.write_euroc(
+                    sess, tree, n_features=N_FEATURES,
+                    images=[frames[sess.start + i] for i in range(sess.n_frames)])
+            save_orbvoc_text(voc, str(root / "voc.txt"))
+            argv = ["--dataset", "euroc", "--path", ",".join(trees), "--settings", yaml_path,
+                    "--sensor", "stereo_imu", "--vocab", str(root / "voc.txt"), "--output",
+                    str(root / "traj.txt"), "--device", str(dev)]
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                rep = run.main(argv)
+            slam = probe.systems[0]
+            traj = np.loadtxt(root / "traj.txt", ndmin=2)
+            log(f"[{name}] python -m tpuslam_torch.run {' '.join(argv)}: report {json.dumps(rep)}")
+        else:
+            cfg = vi_config()
+            cfg.tracking.min_stereo_init_features = 200
+            cfg.inertial = InertialConfig(**vm.SHORT_SCHEDULE)
+            cfg.loop = LoopConfig(background_gba=False)
+            slam = probe.attach(System(
+                Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.IMU_STEREO,
+                imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate), bf=FX * BASELINE, vocab=voc,
+                device=dev))
+            for s, sess in enumerate(sessions):
+                if s:
+                    slam.change_dataset()
+                for i, t in enumerate(sess.timestamps()):
+                    slam.track_stereo(*frames[sess.start + i], float(t),
+                                      imu=vm.session_imu(sess, i))
+            slam.shutdown()
+            traj = np.asarray(slam.trajectory_tum())
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts_now()
+    shutil.rmtree(root, ignore_errors=True)
+    m, tr, rows = slam.map, slam.tracker, probe.rows
+    gates = vm.joint_gates(m, traj, sessions)
+    fps = seq.fps
+
+    def frame_of(t):
+        return int(round(t * fps)) if t < vm.T0_SECOND else n_a + int(round((t - vm.T0_SECOND)
+                                                                            * fps))
+
+    events = [(e["event"], frame_of(e["t"])) for e in slam.local_mapper.debug_events]
+    tries = [(x["frame"], x["kf"], x["cand"], round(x["s"], 6), x["yaw_removed"])
+             for x in probe.tries]
+    merge_frames = [x["frame"] for x in probe.merges]
+    fused = [r for r in rows if r["fused_vi"] and not r["host"]]
+    log(f"[{name}] {len(rows)} frames in {wall:.1f} s; IMU events (event, frame) {events}; "
+        f"merges {probe.merges}; merges aborted before the young map's IMU init "
+        f"{slam.loop_closer.merges_aborted}; merge tries (frame, KFs, Sim3 scale before the "
+        f"gates, rotation removed by the yaw projection in rad) {tries}; the correction's "
+        f"parts {probe.parts}; card {smi}")
+    log(f"[{name}] joint gates on {gates['rows']} rows: unscaled ATE {gates['ate'] * 100:.3f} cm,"
+        f" Horn scale {gates['scale']:.5f}, |R[2,2]| {gates['r22']:.6f}, median KF velocity "
+        f"error {gates['vel']:.4f} m/s, finite {gates['finite']}; state "
+        f"{slam.get_tracking_state().name}, maps {m.map_ids()}, {len(m.valid_kf_ids())} KFs")
+    stage_table(name, GLOBAL_TIMER)
+    if merge_frames:
+        for what, ms in (("before", probe.wall[n_a:merge_frames[0]]),
+                         ("after", probe.wall[merge_frames[0] + 1:])):
+            if ms:
+                log(f"[{name}] second session's frames {what} the merge: {len(ms)}, median "
+                    f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms, max "
+                    f"{max(ms):.1f} ms")
+    log(f"[{name}] launches {launches}; fused VI frames {len(fused)}")
+    check(branch == "b" or (rep["maps"] == 1 and rep["state"] == "OK"), f"{name}: report")
+    check(len(probe.merges) == 1 and merge_frames[0] >= n_a, f"{name}: merges {probe.merges}")
+    check(probe.merges[0]["imu"] and (branch == "a" or probe.merges[0]["ba1"]),
+          f"{name}: the merge ran before the young map's IMU init (b: VIBA1)")
+    check(max(r["maps"] for r in rows) == 2 and rows[-1]["maps"] == 1,
+          f"{name}: map counts {sorted(set(r['maps'] for r in rows))}")
+    check(slam.get_tracking_state().name == "OK" and m.map_ids() == [0]
+          and m.current_map_id == 0, f"{name}: final state or maps")
+    pts = np.nonzero(m.mp_valid[: m.n_mp])[0]
+    check(all(m.kf_map_id[k] == 0 for p in pts for k in m.mp_obs[int(p)])
+          and all(m.kf_valid[k] and m.kf_map_id[k] == 0 for k in (tr.ref_kf, tr.last_kf)),
+          f"{name}: something is left in the young map")
+    check(gates["ok"], f"{name}: joint gates {gates}")
+    check(all(r["patch"] == 2 for r in rows),
+          f"{name}: patch gathers per frame {sorted(set(r['patch'] for r in rows))} != 2")
+    check(len(fused) >= 1 and all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
+          f"{name}: a fused VI frame did not make 4 pose-LM launches and one "
+          f"pose_inertial_solve")
+    check(len(probe.captured) == 1, f"{name}: no fused VI frame after the merge")
+    gathers, calls, at = probe.captured[0]
+    check(len(gathers) == 2 and len(calls) == 4, f"{name}: {len(gathers)} gathers, "
+          f"{len(calls)} pose-LM calls kept on frame {at}")
+    shapes = {"patch_gather": {side: patch_compare(*g, f"{name} frame {at} {side}")
+                               for side, g in zip(("left", "right"), gathers)},
+              "pose_lm": fused_vi_lm_compare(calls, name, smi)}
+    shapes["frame"] = at
+    log(f"[{name}] phase 16 ({branch}) in {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes
+
+
 def kb8_pose_solve(dev, cam, n_valid=500, n=768, seed=4):
     """One camera-generic KB8 pose solve at the fisheye host tracker's
     shape (n_valid observations padded to n, f32): its wall time (median
@@ -2476,25 +2801,41 @@ def main():
         by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     finally:
         by_path["vi_schedule"], vi_schedule_shapes = vi_schedule.result()
-    tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
-    by_path.update(tools)
-    by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
-    for stereo in (True, False):
-        path = "fisheye_stereo_vi" if stereo else "fisheye_mono_vi"
-        by_path[path], shapes = phase_fisheye_vi(dev, smi, stereo)
+    # phase 16's two branches and phase 14 run in processes of their own
+    # beside phases 11-13
+    vi_merge = {b: PhaseInChild("phase_vi_merge", dev, smi, b) for b in N_VI_MERGE}
+    fisheye_mono_vi = PhaseInChild("phase_fisheye_vi", dev, smi, False)
+    vi_merge_shapes = {}
+    try:
+        tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
+        by_path.update(tools)
+        by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
+        by_path["fisheye_stereo_vi"], shapes = phase_fisheye_vi(dev, smi, True)
         fish_shapes.update(shapes)
+    finally:
+        by_path["fisheye_mono_vi"], shapes = fisheye_mono_vi.result()
+        fish_shapes.update(shapes)
+        for b, child in vi_merge.items():
+            by_path[f"vi_merge_{b}"], vi_merge_shapes[b] = child.result()
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
     patch["vi_schedule_shapes"] = vi_schedule_shapes["patch_gather"]
+    patch["vi_merge_shapes"] = {f"{b}_{side}": dict(r, frame=v["frame"])
+                                for b, v in vi_merge_shapes.items()
+                                for side, r in v["patch_gather"].items()}
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
                                 patch["vi_schedule_shapes"]["max_abs_err"]]
-                               + [r["max_abs_err"] for r in fish_shapes.values()])
+                               + [r["max_abs_err"] for r in fish_shapes.values()]
+                               + [r["max_abs_err"] for r in patch["vi_merge_shapes"].values()])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
     lm["vi_schedule_shapes"] = vi_schedule_shapes["pose_lm"]
+    lm["vi_merge_shapes"] = {b: dict(v["pose_lm"], frame=v["frame"])
+                             for b, v in vi_merge_shapes.items()}
     lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
                              lm["vi_schedule_shapes"].pop("max_abs_err")]
+                            + [v.pop("max_abs_err") for v in lm["vi_merge_shapes"].values()]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
@@ -2505,7 +2846,8 @@ def main():
                       "cli": N_CLI,
                       "cli_b": 2 * N_CLI, "cli_c": 2 * N_CLI, "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
-                      "sensors_rgbd": 2 * N_SENSORS}
+                      "sensors_rgbd": 2 * N_SENSORS,
+                      **{f"vi_merge_{b}": n[0] + n[2] for b, n in N_VI_MERGE.items()}}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())
         r["launches_by_path"] = {k: c[r["name"]] for k, c in by_path.items()}

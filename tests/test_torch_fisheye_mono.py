@@ -10,10 +10,7 @@ draws (tests/test_torch_vi_system.py's jax_draw), both Systems get
 the same numpy images and IMU arrays, and the port runs in f64, as
 tpuslam does here (the card runs f32: chip_smoke.py phase 14).
 
-  * Monocular (the renderer's forward_arc, 13 frames): on every frame the
-    same tracking state, keyframe count and poses within 1 cm and 0.2
-    degrees (tests/test_torch_mono.py's tolerances; the map's scale is the
-    initial median depth of 1), the two-view init by frame 4.
+  * Monocular: tests/test_torch_fisheye_mono_slice.py.
   * Mono-inertial (vi_excite, IMU at 200 Hz, tests/test_torch_vi_system.py's
     noise), 31 frames in lockstep, a few past the IMU init: on every frame
     the same tracking state; the IMU initializes within 1 frame in both,
@@ -71,29 +68,6 @@ def _systems(sensor, **imu):
                 sensor=getattr(Sensor, sensor), dtype=torch.float64, device="cpu",
                 **({"imu_calib": ImuCalib(**NOISE)} if imu else {}))
     return cam, js, ts
-
-
-def test_slice_matches_tpuslam_fisheye_mono_system(monkeypatch):
-    monkeypatch.setattr(twoview, "draw_samples", jax_draw)
-    cam, js, ts = _systems("MONOCULAR")
-    seq = SyntheticSequence(n_frames=N_MONO, fps=10, speed=0.5, camera=cam)
-    ok_at = {}
-    for i in range(N_MONO):
-        img = seq.frame(i)
-        Tj = js.track_monocular(img, i / seq.fps)
-        Tt = ts.track_monocular(img, i / seq.fps)
-        assert ts.get_tracking_state().name == js.get_tracking_state().name, i
-        assert len(ts.map.valid_kf_ids()) == len(js.map.valid_kf_ids()), i
-        assert (Tt is None) == (Tj is None), i
-        if Tj is not None:
-            ok_at.setdefault("init", i)
-            assert np.linalg.norm(Tt[:3, 3] - Tj[:3, 3]) < 0.01, i
-            assert _rot_deg(Tt[:3, :3], Tj[:3, :3]) < 0.2, i
-    assert ts.tracker.camspec.kind == "kb8" and ts.tracker.camera2 is None
-    assert ok_at["init"] <= 4, ok_at
-    assert ts.get_tracking_state() == State.OK and len(ts.map.valid_kf_ids()) >= 4
-    for a, b in zip(ts.trajectory_tum(), js.trajectory_tum()):
-        np.testing.assert_allclose(a, b, atol=0.01)
 
 
 @pytest.fixture(scope="module")

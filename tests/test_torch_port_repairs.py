@@ -4,10 +4,10 @@
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
     helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
-    tests/torch_fisheye_rig.py), imports tpuslam or jax, nor what the card
-    host lacks: cv2, yaml, matplotlib, PIL (a subprocess with all of them
-    blocked imports them all and writes a TUM-VI tree with
-    make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
+    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py), imports tpuslam
+    or jax, nor what the card host lacks: cv2, yaml, matplotlib, PIL (a
+    subprocess with all of them blocked imports them all and writes a
+    TUM-VI tree with make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
     matplotlib only when it draws). The helpers import nothing but the
     port and numpy, and scripts/tum_vi_examples_torch.sh and
     scripts/euroc_examples_torch.sh drive the port's CLI.
@@ -19,6 +19,7 @@
   * A matrix that torch.linalg cannot factorize gives NaN results, as in
     jnp.linalg, and raises nothing (core/linalg.inv, solve, svd, eigh and
     the sites that call them).
+  * Forward-mode Jacobians may be taken in any thread (utils.jacfwd).
 """
 
 import ast
@@ -69,6 +70,8 @@ for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torc
 sys.path.insert(0, "tests")
 import torch_vi_heave
 import torch_fisheye_rig
+import torch_vi_merge
+assert len(torch_vi_merge.heave_sessions(2, 1, 2)[1]) == 2
 # the TUM-VI tree writer, on a 2-frame KB8 heave sequence at 64x64
 import tempfile
 cam, cam2, Trl = torch_fisheye_rig.kb8_rig(64)
@@ -122,6 +125,61 @@ def test_heave_helper_imports_only_the_port_and_numpy():
 def test_fisheye_rig_helper_imports_only_the_port_and_numpy():
     """So does tests/torch_fisheye_rig.py."""
     assert _import_roots("torch_fisheye_rig.py") == {"numpy", "tpuslam_torch"}
+
+
+def test_vi_merge_helper_imports_only_the_port_and_numpy():
+    """So does tests/torch_vi_merge.py (phase 16's sessions), beside the
+    standard library and the heave helper."""
+    assert _import_roots("torch_vi_merge.py") == {"importlib", "os", "numpy", "tpuslam_torch",
+                                                  "torch_vi_heave"}
+
+
+def test_jacfwd_is_safe_in_any_thread():
+    """Forward-mode AD keeps its dual levels in process-global state, so
+    torch.func.jacfwd taken in two threads at once tears down the other's
+    level ("Trying to access a forward AD level with an invalid index"):
+    on the card the background FullInertialBA after a stereo-inertial merge
+    (solve/inertial_ba.py) failed so beside the tracker's
+    pose_inertial_solve. The port's utils.jacfwd evaluates under one
+    process-wide lock, and every solver takes it: 8 threads with a short
+    switch interval each get the
+    single-thread Jacobians."""
+    from tpuslam_torch.utils import jacfwd
+
+    for path in (os.path.join(d, f) for d, _, fs in os.walk(os.path.join(ROOT, "tpuslam_torch"))
+                 for f in fs if f.endswith(".py")):
+        with open(path) as fh:
+            calls = [n for n in ast.walk(ast.parse(fh.read()))
+                     if isinstance(n, ast.Call) and ast.unparse(n.func) == "torch.func.jacfwd"]
+        assert not calls or path.endswith(os.path.join("utils", "__init__.py")), path
+
+    def f(x):
+        return torch.sin(x) * x.sum() + torch.cos(2.0 * x)
+
+    xs = [torch.randn(6, dtype=torch.float64, generator=torch.Generator().manual_seed(i))
+          for i in range(8)]
+    want = [torch.func.jacfwd(f)(x) for x in xs]
+    got, errors = [None] * len(xs), []
+
+    def work(i):
+        try:
+            for _ in range(100):
+                got[i] = jacfwd(f)(xs[i])
+        except RuntimeError as e:
+            errors.append(e)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(i,)) for i in range(len(xs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads) and not errors, errors
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
 
 
 def test_tum_vi_runner_drives_the_port():

@@ -1,5 +1,4 @@
-"""The dataset CLI's TUM-VI routes against tpuslam's, and the port's TUM-VI
-runner script, on the CPU.
+"""The dataset CLI's TUM-VI routes against tpuslam's, on the CPU.
 
 12 frames of the heave sequence (tests/torch_vi_heave.py) seen by the KB8
 pair of tests/torch_fisheye_rig.py at 320x320 (baseline 0.2 m; at 256x256
@@ -17,15 +16,8 @@ a KB8 settings file with TUM_512.yaml's keys (700 features).
     own RANSAC draws): both report OK with the same frame, keyframe and map
     counts, and their trajectory files agree row by row within 1 cm and 0.2
     degrees (the tolerances of tests/test_torch_system.py).
-  * scripts/tum_vi_examples_torch.sh with DEVICE=cpu over the tree, with
-    all four sensors: every report line is OK, and every run writes its
-    trajectory and keyframe files.
+  * The runner script: tests/test_torch_tum_vi_runner.py.
 """
-
-import json
-import os
-import subprocess
-import sys
 
 import numpy as np
 import pytest
@@ -38,7 +30,7 @@ from tpuslam_torch import run
 from tpuslam_torch.io import datasets
 from tpuslam_torch.io.settings import load_settings
 
-from test_torch_cli import ROOT, _rot_deg, _script
+from test_torch_cli import _rot_deg, _script
 from test_torch_vi_system import jax_init_draw  # noqa: F401
 from torch_fisheye_rig import BASELINE, kb8_rig
 from torch_vi_heave import heave_sequence
@@ -103,27 +95,3 @@ def test_run_main_tum_vi_matches_tpuslam(tree, tmp_path, sensor, jax_init_draw):
         assert _rot_deg(ra[4:8], rb[4:8]) < 0.2, ra[0]
     if sensor == "stereo_imu":
         assert got["ate_rmse"] < 0.08
-
-
-def test_tum_vi_examples_runner_on_the_cpu(tree, tmp_path):
-    seq, path, yaml_path = tree
-    env = dict(os.environ, TUMVI_ROOT=os.path.dirname(path), SEQS=os.path.basename(path),
-               OUT_DIR=str(tmp_path), DEVICE="cpu", OMP_NUM_THREADS="2",
-               PATH=os.path.dirname(sys.executable) + os.pathsep + os.environ["PATH"])
-    res = subprocess.run(["bash", os.path.join(ROOT, "scripts", "tum_vi_examples_torch.sh"),
-                          yaml_path], cwd=ROOT, env=env, capture_output=True, text=True,
-                         timeout=600)
-    assert res.returncode == 0, res.stderr[-3000:]
-    reports = {}
-    sensor = None
-    for line in res.stdout.splitlines():
-        if line.startswith("==="):
-            sensor = line.split()[2]
-        elif line.startswith("{"):
-            reports[sensor] = json.loads(line)
-    assert sorted(reports) == ["mono", "mono_imu", "stereo", "stereo_imu"], res.stdout[-3000:]
-    for sensor, rep in reports.items():
-        assert rep["state"] == "OK" and rep["frames"] == N_FRAMES, (sensor, rep)
-        for kind in ("f", "kf"):
-            rows = np.loadtxt(tmp_path / f"{kind}_room1_{sensor}.txt", ndmin=2)
-            assert len(rows) >= 2 and rows.shape[1] == 8, (sensor, kind)

@@ -22,9 +22,16 @@ position). On an IMU-initialized map the closer runs tpuslam's inertial
 parts: the merge gates (scale within [0.9, 1.1] after VIBA1, the rotation
 projected onto yaw), the 4-DoF essential graph, the visual-inertial weld
 BA of a merge, and the FullInertialBA as the background GBA, which stages
-velocities and biases with the poses. In a process group of more than one
-rank, a large GBA (visual or inertial) is the obs-sharded distributed solve
-of parallel/dist_ba.py, driven from rank 0.
+velocities and biases with the poses. Three faults of tpuslam's inertial
+merge are repaired: an inertial map merges only once its own IMU is
+initialized (tpuslam merges it, then re-initializes the IMU over both
+sessions); the yaw projection acts on the merge's world correction, about
+gravity, and holds through the candidate's refinement (tpuslam projects
+the camera-to-camera rotation onto the optical axis); the essential graph
+of a fixed-scale merge measures the seam's edges in one frame (tpuslam's
+pull the young map back). In a process group of more than one rank, a
+large GBA (visual or inertial) is the obs-sharded distributed solve of
+parallel/dist_ba.py, driven from rank 0.
 """
 
 from __future__ import annotations
@@ -68,6 +75,9 @@ class LoopCloser:
         self.kf_bow: dict[int, dict] = {}
         self.loop_edges: list = []      # [(ka, kb, (s, R, t))]
         self.n_loops_closed = 0
+        # confirmed merges not made because the young inertial map had not
+        # initialized its IMU: [(current kf, candidate kf)]
+        self.merges_aborted: list = []
         # temporal-consistency state (ref LoopClosing.cc:263-500): one
         # pending common-region candidate, confirmed across consecutive KFs
         # before any correction. Keys: cand, last_kf, sim3 (s, R, t:
@@ -140,11 +150,18 @@ class LoopCloser:
         if self.pending is not None and self.pending["count"] >= lcfg.consecutive_kfs:
             p = self.pending
             self.pending = None
-            s, R, t = p["sim3"]
-            with T.stage("loop.correct"):
-                self._correct_loop(p["last_kf"], p["cand"], s, R, t, p["match_pairs"],
-                                   merge=p["merge"])
-            closed = True
+            if p["merge"] and self._imu_calib() is not None and not m.imu_initialized:
+                # an inertial map merges only once its own IMU is initialized
+                # (ref LoopClosing::Run: "IMU is not initilized, merge is
+                # aborted"); tpuslam merges it, and its IMU stage then re-runs
+                # the IMU init over both sessions' keyframes
+                self.merges_aborted.append((p["last_kf"], p["cand"]))
+            else:
+                s, R, t = p["sim3"]
+                with T.stage("loop.correct"):
+                    self._correct_loop(p["last_kf"], p["cand"], s, R, t, p["match_pairs"],
+                                       merge=p["merge"])
+                closed = True
         self.db.add(kf, word, bow)
         return closed
 
@@ -168,6 +185,11 @@ class LoopCloser:
         ref = self._refine_sim3(kf, cand, s, R2, t2, pairs)
         if ref is not None:
             s, R2, t2 = ref
+            if p["merge"] and self.map.imu_initialized:
+                # the refinement frees the rotation again: the merge applies
+                # the yaw-only Sim3 (ref LoopClosing::Run projects the final
+                # Sim3 just before MergeLocal2)
+                R2, t2, _ = self._yaw_only(kf, cand, s, R2, t2)
         p["sim3"] = (s, R2, t2)
         p["last_kf"] = kf
         p["match_pairs"] = pairs
@@ -263,22 +285,40 @@ class LoopCloser:
         if merge and m.imu_initialized:
             # inertial merge gates (ref LoopClosing.cc:95-114): gravity pins
             # pitch / roll and, once VIBA1 ran, the scale is metric — reject a
-            # Sim3 scale outside [0.9, 1.1] and project the rotation onto
-            # yaw (MergeLocal2's 4-DoF alignment)
+            # Sim3 scale outside [0.9, 1.1] and project the merge's world
+            # correction onto yaw (MergeLocal2's 4-DoF alignment)
             if m.inertial_ba1 and not (0.9 < s < 1.1):
                 return None
-            yaw = np.arctan2(R[1, 0] - R[0, 1], R[0, 0] + R[1, 1])
-            R_yaw = np.array([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
-                              [0.0, 0.0, 1.0]])
-            if np.arccos(np.clip((np.trace(R_yaw.T @ R) - 1) / 2, -1, 1)) > 0.35:
+            R, t, removed = self._yaw_only(kf, cand, s, R, t)
+            if removed > 0.35:
                 return None  # the Sim3 disagrees badly with gravity: no merge
-            R = R_yaw
         # guided projection: the loop side's local map into the current KF
         n_proj, proj_pairs = self._search_by_projection(kf, cand, s, R, t)
         if n_proj < lcfg.min_proj_matches:
             return None
         inl = inl.cpu().numpy()
         return dict(sim3=(s, R, t), match_pairs=list(zip(mp_c[inl], mp_l[inl])) + proj_pairs)
+
+    def _yaw_only(self, kf: int, cand: int, s, R, t):
+        """The merge Sim3 (X_kf = s R X_cand + t, camera to camera) with the
+        world correction it implies, W = R_cand^T R^T R_kf (young map's
+        world to the merge map's), projected onto a rotation about gravity
+        (world z), the current keyframe's corrected camera centre kept.
+        Returns (R, t, the rotation removed from W in rad). tpuslam projects
+        R itself onto the current camera's optical axis, which is not the
+        vertical: on a gravity-aligned pair of maps that removes the true
+        heading difference of the two views and leaves a tilt."""
+        m = self.map
+        Rk, Rc, tc = m.kf_R[kf], m.kf_R[cand], m.kf_t[cand]
+        W = Rc.T @ R.T @ Rk
+        yaw = np.arctan2(W[1, 0] - W[0, 1], W[0, 0] + W[1, 1])
+        W_yaw = np.array([[np.cos(yaw), -np.sin(yaw), 0.0], [np.sin(yaw), np.cos(yaw), 0.0],
+                          [0.0, 0.0, 1.0]])
+        removed = float(np.arccos(np.clip((np.trace(W_yaw.T @ W) - 1) / 2, -1, 1)))
+        R_cw = R @ Rc
+        centre = -R_cw.T @ (s * (R @ tc) + t) / s    # the corrected kf camera centre
+        R_yaw = Rk @ W_yaw.T @ Rc.T
+        return R_yaw, -s * (Rk @ W_yaw.T @ centre) - s * (R_yaw @ tc), removed
 
     def _search_by_projection(self, kf: int, cand: int, s, R, t):
         """Project the loop side's local map into the current KF through the
@@ -326,6 +366,23 @@ class LoopCloser:
         Rn, tn, sn = R_new[anchor_rows], t_new[anchor_rows], s_new[anchor_rows]
         Xc = np.einsum("pij,pj->pi", Ro, m.mp_pos[pt_ids]) + to
         m.mp_pos[pt_ids] = np.einsum("pji,pj->pi", Rn, Xc - tn) / sn[:, None]
+
+    def _seam_poses(self, old_side, kf: int, kf_old_pose):
+        """The merge map's keyframes posed in the young map's frame before
+        the transport, {kf: (R, t)}. The essential graph measures every edge
+        between the poses from before the correction; across the seam the
+        young keyframe's pose is in the young map's frame and the old
+        keyframe's in the merge map's, so without these the seam's
+        covisibility edges pull the young map back to where it was
+        (tpuslam measures them so). The transport moved every young
+        keyframe by one rigid G = T_kf_old^-1 T_kf_new; an old keyframe's
+        pose in the young frame is T_a G^-1. Rigid only: the merges of a
+        fixed-scale map (stereo, RGB-D, inertial)."""
+        m = self.map
+        Ro, to = kf_old_pose
+        Rn, tn = m.kf_R[kf], m.kf_t[kf]
+        Rg, tg = Rn.T @ Ro, Rn.T @ (to - tn)           # G^-1 = T_kf_new^-1 T_kf_old
+        return {a: (m.kf_R[a] @ Rg, m.kf_R[a] @ tg + m.kf_t[a]) for a in old_side}
 
     def _correct_loop(self, kf: int, cand: int, s, R, t, match_pairs, merge: bool = False):
         """ref CorrectLoop (:1013); with merge=True the visual Atlas merge
@@ -402,6 +459,8 @@ class LoopCloser:
             # the graph and the weld BA (ref MergeLocal vpFixedKFs)
             old_side = [int(x) for x in m.valid_kf_ids(map_id=int(m.kf_map_id[cand]))]
             m.relabel_map(int(m.kf_map_id[kf]), int(m.kf_map_id[cand]))
+        if merge and self.fix_scale:
+            old_pose.update(self._seam_poses(old_side, kf, old_pose[kf]))
         # the essential graph with the new loop edge (S_kf<-cand)
         self.loop_edges.append((cand, kf, (s, R, t)))
         pre_R = {int(k): m.kf_R[k].copy() for k in m.valid_kf_ids()}

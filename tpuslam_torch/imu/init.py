@@ -18,6 +18,7 @@ import torch
 
 from ..core.lie import so3_exp, so3_log
 from ..core.linalg import inv, spd_solve
+from ..utils import jacfwd
 from .preintegration import GRAVITY, corrected_delta
 
 
@@ -41,7 +42,7 @@ def gyro_bias_from_rotations(Rwb_pairs, pre_dR, pre_JRg):
     bg = torch.zeros(3, dtype=R1.dtype, device=R1.device)
     eye = torch.eye(3, dtype=R1.dtype, device=R1.device)
     for _ in range(3):
-        J = torch.func.jacfwd(residuals)(bg)
+        J = jacfwd(residuals)(bg)
         r = residuals(bg)
         bg = bg - spd_solve(J.T @ J + 1e-9 * eye, J.T @ r)
     return bg
@@ -139,7 +140,7 @@ def inertial_init_solve(Rwb, p, v0, edges_a, edges_b, pre_stack, info9, prior_g:
     prior_diag[6:9] = prior_a
 
     def normal_eqs(th):
-        J = torch.func.jacfwd(res)(th)                       # [E,9,D]
+        J = jacfwd(res)(th)                       # [E,9,D]
         JW = torch.einsum("eij,eid->ejd", info9, J)
         return J, JW, torch.einsum("eid,eif->df", J, JW) + torch.diag(prior_diag)
 

@@ -24,6 +24,7 @@ from ..core.lie import hat, so3_exp
 from ..core.linalg import spd_solve
 from ..core.robust import CHI2_MONO, CHI2_STEREO, huber_cost, huber_weight
 from ..imu.preintegration import inertial_residual
+from ..utils import jacfwd
 from .ba import _inv3x3
 from .reproj import PINHOLE, cam_residual
 from .schur_cg import _scatter_add
@@ -91,7 +92,7 @@ def edge_residual_and_jacobians(*args):
         args = _batch_of_one(args)
     z = torch.zeros(1, 15, dtype=args[0].dtype, device=args[0].device)
     r = _edge_residual_of_eps(z, z, *args)
-    J1, J2 = torch.func.jacfwd(_edge_residual_of_eps, argnums=(0, 1))(z, z, *args)
+    J1, J2 = jacfwd(_edge_residual_of_eps, argnums=(0, 1))(z, z, *args)
     J1, J2 = J1[:, :, 0], J2[:, :, 0]
     if not batched:
         r, J1, J2 = r[0], J1[0], J2[0]

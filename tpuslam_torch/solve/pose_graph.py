@@ -24,7 +24,7 @@ import torch
 from ..core.lie import (se3_compose, se3_inverse, se3_log, sim3_compose, sim3_exp,
                         sim3_inverse, sim3_log)
 from ..core.linalg import inv, spd_solve
-from ..utils import DEFAULT_DEVICE, resolve_device
+from ..utils import DEFAULT_DEVICE, jacfwd, resolve_device
 
 
 def _index_add(n, index, src):
@@ -114,7 +114,7 @@ def pose_graph_solve(s, R, t, edges_i, edges_j, s_m, R_m, t_m, edge_w, fixed,
     for _ in range(n_iters):
         args = edge_args(state)
         r = _edge_residuals(z7, z7, *args)                               # [E,7]
-        Ji, Jj = (J[:, :, 0] for J in torch.func.jacfwd(_edge_residuals, argnums=(0, 1))(
+        Ji, Jj = (J[:, :, 0] for J in jacfwd(_edge_residuals, argnums=(0, 1))(
             z7, z7, *args))                                              # [E,7,7]
         JiT = Ji.transpose(1, 2) * w[:, None, None]
         JjT = Jj.transpose(1, 2) * w[:, None, None]
@@ -194,7 +194,7 @@ def pose_graph_solve_4dof(R, t, edges_i, edges_j, R_m, t_m, edge_w, fixed, n_ite
     for _ in range(n_iters):
         args = edge_args(state)
         r = _edge4_residual(z4, z4, *args)                                 # [E,6]
-        Ji, Jj = (J[:, :, 0] for J in torch.func.jacfwd(_edge4_residual, argnums=(0, 1))(
+        Ji, Jj = (J[:, :, 0] for J in jacfwd(_edge4_residual, argnums=(0, 1))(
             z4, z4, *args))                                                # [E,6,4]
         JiT = Ji.transpose(1, 2) * w[:, None, None]
         JjT = Jj.transpose(1, 2) * w[:, None, None]

@@ -28,6 +28,7 @@ import torch
 from ..core.lie import hat, so3_exp, so3_log
 from ..core.linalg import solve, spd_solve
 from ..core.robust import huber_cost, huber_weight
+from ..utils import jacfwd
 from .inertial_ba import _batch_of_one, _edge_residual_of_eps, edge_residual_and_jacobians
 from .reproj import PINHOLE, cam_residual
 
@@ -95,7 +96,7 @@ def pose_inertial_solve(R1, p1, v1, bg1, ba1, R2, p2, v2, bg2, ba2, X, uvr, inv_
 
     def prior_jacobian(anchor):
         # a batch of one, as edge_residual_and_jacobians runs one edge
-        return torch.func.jacfwd(_prior_residual_of_eps)(
+        return jacfwd(_prior_residual_of_eps)(
             z1, *_batch_of_one(anchor + prior_args))[0, :, 0]
 
     def build(state, use, cm, cs, robust):

@@ -16,6 +16,7 @@ import torch
 from ..cameras.kb8 import kb8_project
 from ..core.lie import so3_exp
 from ..core.linalg import spd_solve, svd
+from ..utils import jacfwd
 
 
 def draw_samples(n_valid: int, n_hyp: int, generator=None):
@@ -146,7 +147,7 @@ def optimize_sim3(s0, R0, t0, X1, X2, valid, uv1, uv2, inv_s2_1, inv_s2_2,
         else:
             chi_max = torch.clamp(chi.max(0).values, min=1e-9)
             w = torch.clamp(torch.sqrt(th_chi2 / chi_max), max=1.0) * (valid & posz)
-        J = torch.func.jacfwd(lambda th: residuals(th, s, R, t)[0])(z7)   # [2N,2,1,7]
+        J = jacfwd(lambda th: residuals(th, s, R, t)[0])(z7)   # [2N,2,1,7]
         w2 = torch.cat([w, w]).repeat_interleave(2)
         Jr = J.reshape(-1, 7)
         H = (Jr * w2[:, None]).T @ Jr

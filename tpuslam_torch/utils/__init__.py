@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 # Every entry point of the port runs on the card unless its caller passes
@@ -25,3 +27,22 @@ def device_const(values, dtype, device):
     cast = float if dtype.is_floating_point else int
     return torch.cat([torch.full((1,), cast(v), dtype=dtype, device=device)
                       for v in values])
+
+
+# forward-mode AD keeps its dual levels in process-global state: jacfwd
+# taken in two threads at once (the background GBA's and the tracker's
+# solves) tears down each other's levels ("Trying to access a forward AD
+# level with an invalid index")
+_JACFWD_LOCK = threading.RLock()
+
+
+def jacfwd(fn, argnums=0):
+    """torch.func.jacfwd(fn, argnums), each evaluation under one
+    process-wide lock, so any thread may take it."""
+    inner = torch.func.jacfwd(fn, argnums=argnums)
+
+    def call(*args, **kwargs):
+        with _JACFWD_LOCK:
+            return inner(*args, **kwargs)
+
+    return call
