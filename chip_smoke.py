@@ -7,7 +7,8 @@ levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
 mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
 distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
 stereo-inertial and mono-inertial routes, the inertial mapper's whole
-IMU schedule, and the multi-session stereo-inertial merge.
+IMU schedule, the multi-session stereo-inertial merge, and the mapper on
+its own thread for stereo-inertial SLAM and across both merges.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -118,7 +119,13 @@ Phases, each raising on failure:
      exactly 2 patch-gather launches per frame and pose-LM launches; the
      merge frame, the stage table (loop, loop.correct, gba.solve,
      gba.apply), the host ms of each call of the loop closer's solvers
-     and each session's median and p90 frame ms are printed.
+     and each session's median and p90 frame ms are printed. Run D, run C's
+     command with `--async-mapping --pipelined` (bench.py's configuration
+     across the session boundary): run C's gates and no worker error; the
+     merge's frame against run C's, the frames tracked, lost and
+     relocalized after the correction (which runs on the mapping thread),
+     each session's median and p90 frame ms and the longest frame wall are
+     printed.
      The PNG decode time per image is printed apart from the track time.
  10. distribution (tpuslam_torch/parallel/dist_ba.py; bench_dist_torch.py's
      problem: K = 30 poses, P = 3000 points, O = 15,360 observations, f32):
@@ -169,7 +176,14 @@ Phases, each raising on failure:
      that falls back to the host path is counted and printed; at least one
      must take the fused step. The 4 pose-LM calls of the first fused VI
      frame are kept and held against the plain version (phase 2's
-     tolerances), and the last (4 rounds) timed as in phase 2.
+     tolerances), and the last (4 rounds) timed as in phase 2. (b) the
+     same over 42 frames with async_mapping=True (the mapper, its IMU init and inertial
+     BAs on the worker thread) under phase 7 (b)'s bounded back-pressure,
+     in a process of its own beside phases 11-14 and 16: phase 12's gates,
+     at least one handshake rebase, no worker error, and both kernels held
+     on the first fused VI frame after the async IMU init (its two patch
+     gathers bitwise); the IMU init frame, the pose_inertial stage and the
+     longest frame wall are printed against phase 12's;
  13. fisheye stereo-inertial, TUM-VI's main configuration:
      System(KB8, IMU_STEREO, camera2=, Tlr=).track_stereo(..., imu=) over
      36 frames of the heave sequence seen by phase 8's rig
@@ -243,7 +257,12 @@ Phases, each raising on failure:
      rotation the yaw projection removed, the weld's size, the stage table
      and the second session's frame ms before and after the merge are
      printed. Both branches run in processes of their own (PhaseInChild)
-     beside phases 11-13, as does phase 14.
+     beside phases 11-13, as does phase 14. Branch (b) runs a second time
+     (its second session 74 frames) with async_mapping=True (the merge's detection, correction, weld BA and
+     FullInertialBA on the mapping thread) under phase 7 (b)'s bounded
+     back-pressure, with (b)'s gates and no worker error; the merge's frame,
+     the correction's ms and the longest frame wall of the second session
+     while the correction holds the map lock are printed against (b)'s.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
@@ -255,7 +274,10 @@ pose-LM calls as stereo_vi_shapes, phases 13-14 as fisheye_stereo_vi and
 fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes, phase
 15 as vi_schedule with its kernel inputs in vi_schedule_shapes, phase 16
 as vi_merge_a and vi_merge_b with the kernel inputs of their first fused VI
-frame after the merge in vi_merge_shapes), the nvidia-smi line
+frame after the merge in vi_merge_shapes; phase 12 (b) as stereo_vi_async
+with its first fused VI frame's kernel inputs as stereo_vi_async_shapes,
+phase 9's run D as cli_d, phase 16 (b) async as vi_merge_b_async), the
+nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -316,6 +338,9 @@ N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
 N_BENCH = 40           # phase 11 (c): bench_torch's frames (a warm pass and one timed)
 N_SENSORS = 20         # phase 11 (d): bench_sensors_torch's RGB-D frames (two passes)
 N_STEREO_VI = 34       # phase 12: frames of the heave sequence (tests/torch_vi_heave.py)
+# phase 12 (b): the async IMU init lands some frames after the synchronous
+# run's (after frame 28), so (b) runs 8 frames more for its fused VI frames
+N_STEREO_VI_ASYNC = 42
 # phases 13-14: TUM-VI's fisheye visual-inertial routes at FISH_WH, cut from
 # TUM-VI's 20 Hz to 10 fps: the IMU init needs 10 keyframes and 2 s of them
 N_FISH_STEREO_VI, N_FISH_MONO_VI, FISH_VI_FPS = 36, 33, 10   # the IMU init + ~7-8 frames
@@ -330,8 +355,9 @@ N_VI_SCHEDULE = 64
 # initializes on its frame 79, B's on its frame 83, the merge two keyframes
 # later on B's frame 103) and branch b (its loop_sessions, a keyframe at least
 # every 3 frames: C's init on its frame 25, the merge on its frame 58); each
-# second session ends ~10 frames after its merge
-N_VI_MERGE = {"a": (84, 6, 114), "b": (33, 45, 68)}
+# second session ends ~10 frames after its merge. b_async: branch b with the
+# mapper on its own thread, whose merge lands some frames later
+N_VI_MERGE = {"a": (84, 6, 114), "b": (33, 45, 68), "b_async": (33, 45, 74)}
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
@@ -1324,23 +1350,6 @@ def vi_config():
                                               init_window=base.init_window * W / 376.0))
 
 
-def count_rebases(tracker):
-    """Wrap tracker._sync_imu_from_map to count the handshakes that rebased
-    the last frame (a new pose from the map's last keyframe); returns the
-    counter, a one-entry list."""
-    real, n = tracker._sync_imu_from_map, [0]
-
-    def counted():
-        last = tracker.last_frame
-        before = None if last is None else last.R
-        real()
-        if last is not None and last.R is not None and last.R is not before:
-            n[0] += 1
-
-    tracker._sync_imu_from_map = counted
-    return n
-
-
 def vi_run_summary(name, slam, rows, wall, smi):
     """Print the per-frame launch summary of a VI run; returns (fused VI
     frames, VI frames that fell back to the host path, host-path frames
@@ -1381,6 +1390,9 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     from tpuslam_torch.imu.preintegration import ImuCalib
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_async import count_rebases, paced
+
     name = "mono_vi_async" if async_mapping else "mono_vi"
     seq, frames, imu = data
     times = seq.timestamps()
@@ -1393,12 +1405,8 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     wall, rows, waits = [], [], []
     for i in range(N_VI):
         if async_mapping:
-            # bounded back-pressure (tests/test_async_mapping.py): at most
-            # 2 s waiting for the worker's queue to fall to 2 keyframes
-            t1 = time.perf_counter()
-            while slam.async_mapper.queue.qsize() > 2 and time.perf_counter() - t1 < 2.0:
-                time.sleep(0.02)
-            waits.append(time.perf_counter() - t1)
+            # bounded back-pressure (tests/test_async_mapping.py)
+            waits.append(paced(slam))
         before = vi_counts()
         initialized = slam.map.imu_initialized
         t1 = time.perf_counter()
@@ -1453,6 +1461,19 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     return launches
 
 
+def redecided_frames(rows, events, name):
+    """The frames of a VI run (rows of launch counts) that extracted their
+    features for the host path and then took the fused VI step: with the
+    mapper on its own thread the IMU init can land between the tracker's
+    choice of path and the map lock, and the tracker decides again under the
+    lock (4 patch gathers on that frame). At most one per IMU init."""
+    out = [i for i, r in enumerate(rows) if r["patch"] == 4 and r["fused_vi"] and not r["host"]]
+    n_init = sum(e["event"] == "imu_init" for e in events)
+    log(f"[{name}] frames that took the fused VI step after choosing the host path: {out}")
+    check(len(out) <= n_init, f"{name}: {len(out)} frames re-decided for {n_init} IMU inits")
+    return out
+
+
 def fused_vi_lm_compare(calls, what, smi):
     """The pose LM on the inputs a path's first fused VI frame gave it
     (its 4 calls, (args, kwargs) each): every call held against the plain
@@ -1495,12 +1516,17 @@ def fused_vi_lm_compare(calls, what, smi):
     return dict(shapes, max_abs_err=worst)
 
 
-def phase_stereo_vi(dev, smi):
+def phase_stereo_vi(dev, smi, async_mapping=False):
     """Phase 12: System.track_stereo(..., imu=) on an IMU_STEREO System over
     the heave sequence (tests/torch_vi_heave.py) at full width; the pose-LM
     kernel's inputs on the first fused visual-inertial frame are held
-    against its plain version and timed. Returns the launch counts and the
-    pose LM's record on those inputs."""
+    against its plain version and timed. (b) with async_mapping: the mapper
+    and its IMU stage on the worker thread under tests/test_async_mapping.py's
+    bounded back-pressure, then flush() and shutdown(); the first fused VI
+    frame after the async IMU init also holds its two patch gathers against
+    the plain version. Returns the launch counts, the kernel records and the
+    run's figures (the IMU init frame, the pose_inertial stage, the longest
+    frame wall)."""
     import torch
 
     from tpuslam_torch.cameras import Pinhole
@@ -1510,42 +1536,59 @@ def phase_stereo_vi(dev, smi):
     from tpuslam_torch.eval.ate import ate_rmse as ate
     from tpuslam_torch.eval.ate import horn_align
     from tpuslam_torch.imu.preintegration import ImuCalib
+    from tpuslam_torch.ops import orb
     from tpuslam_torch.utils.timing import GLOBAL_TIMER
 
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    from torch_async import count_rebases, paced
     from torch_vi_heave import heave_sequence
 
+    if async_mapping:
+        torch.set_num_threads(2)   # (b) runs in a process of its own beside other phases
+    name = "stereo_vi_async" if async_mapping else "stereo_vi"
+    n_frames = N_STEREO_VI_ASYNC if async_mapping else N_STEREO_VI
     t_phase = time.perf_counter()
-    seq = heave_sequence(n_frames=N_STEREO_VI, fps=10, speed=0.5, imu_rate=200.0,
+    seq = heave_sequence(n_frames=n_frames, fps=10, speed=0.5, imu_rate=200.0,
                          baseline=BASELINE, height=H, width=W, fx=FX, fy=FY)
-    frames = render(seq, N_STEREO_VI, "stereo")
+    frames = render(seq, n_frames, "stereo")
     times = seq.timestamps()
     imu = [None] + [np.column_stack(seq.imu_between(times[i - 1], times[i]))
-                    for i in range(1, N_STEREO_VI)]
-    log(f"[stereo_vi] rendered {N_STEREO_VI} stereo frames {W}x{H} of the heave sequence and "
+                    for i in range(1, n_frames)]
+    log(f"[{name}] rendered {n_frames} stereo frames {W}x{H} of the heave sequence and "
         f"{sum(len(x) for x in imu[1:])} IMU samples in {time.perf_counter() - t_phase:.1f} s "
         f"(host, {RENDER_WORKERS} processes)")
     slam = System(Pinhole([FX, FY, seq.cx, seq.cy], W, H), vi_config(),
                   sensor=Sensor.IMU_STEREO, imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate),
-                  bf=FX * BASELINE, device=dev)
-    # the fused step's pose-LM calls of each frame; those of the first fused
-    # visual-inertial frame are kept
-    calls, captured, real_lm = [], [], track_device.pose_optimize_fused
+                  bf=FX * BASELINE, async_mapping=async_mapping, device=dev)
+    rebases = count_rebases(slam.tracker)
+    # the fused step's pose-LM calls and patch gathers of each frame; those of
+    # the first fused visual-inertial frame are kept
+    calls, gathers, captured = [], [], []
+    real_lm, real_gather = track_device.pose_optimize_fused, orb.extract_patches_levels
 
     def capture_lm(*a, **kw):
         if not captured:
             calls.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
         return real_lm(*a, **kw)
 
+    def capture_gather(levels, yx, budgets, size):
+        if not captured:
+            gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets), size))
+        return real_gather(levels, yx, budgets, size)
+
     track_device.pose_optimize_fused = capture_lm
+    orb.extract_patches_levels = capture_gather
     GLOBAL_TIMER.samples.clear()
     reset_counts()
-    wall, rows = [], []
+    wall, rows, waits = [], [], []
     try:
-        for i in range(N_STEREO_VI):
+        for i in range(n_frames):
+            if async_mapping:
+                waits.append(paced(slam))
             before = vi_counts()
             initialized = slam.map.imu_initialized
             calls.clear()
+            gathers.clear()
             t1 = time.perf_counter()
             slam.track_stereo(*frames[i], times[i], imu=imu[i])
             wall.append((time.perf_counter() - t1) * 1e3)
@@ -1553,10 +1596,16 @@ def phase_stereo_vi(dev, smi):
                        **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
                                   (a - b for a, b in zip(vi_counts(), before)))))
             rows.append(row)
-            if not captured and row["fused_vi"] and not row["host"]:
-                captured.extend(calls)
+            if (not captured and row["fused_vi"] and not row["host"] and len(calls) == 4
+                    and len(gathers) == 2):
+                captured.append((list(gathers), list(calls), i))
+        errors = []
+        if async_mapping:
+            slam.async_mapper.flush(raise_errors=False)
+            errors = list(slam.async_mapper.errors)
     finally:
         track_device.pose_optimize_fused = real_lm
+        orb.extract_patches_levels = real_gather
     slam.shutdown()
     torch.cuda.synchronize()
     launches = counts_now()
@@ -1570,34 +1619,51 @@ def phase_stereo_vi(dev, smi):
                                for k in m.valid_kf_ids()]))
     ok_frame = next((i for i, r in enumerate(rows) if r["state"] == "OK"), -1)
     init_frame = next((i for i, r in enumerate(rows[1:], 1) if r["initialized"]), -1) - 1
-    log(f"[stereo_vi] state {slam.get_tracking_state().name}, stereo init on frame {ok_frame}, "
+    pose_inertial = GLOBAL_TIMER.samples.get("pose_inertial", [])
+    figures = dict(init_frame=init_frame, max_frame_ms=max(wall),
+                   pose_inertial_ms=float(np.median(pose_inertial)) * 1e3 if pose_inertial
+                   else None,
+                   rebases=rebases[0], ate=rmse, scale=s)
+    log(f"[{name}] state {slam.get_tracking_state().name}, stereo init on frame {ok_frame}, "
         f"IMU initialized {m.imu_initialized} (after frame {init_frame}), "
         f"{len(m.valid_kf_ids())} KFs, {int(m.mp_valid[: m.n_mp].sum())} map points, "
         f"{len(traj)} trajectory rows, unscaled ATE {rmse * 100:.3f} cm, Horn scale {s:.5f}, "
         f"|R[2,2]| {abs(R[2, 2]):.6f}, median KF velocity error {vel_err:.4f} m/s; mapper "
-        f"events {[e['event'] for e in slam.local_mapper.debug_events]}")
-    fused, fallback, host_pre = vi_run_summary("stereo_vi", slam, rows, wall, smi)
-    check(m.imu_initialized, "stereo_vi: the IMU never initialized")
-    check(slam.get_tracking_state() == State.OK, "stereo_vi: final state not OK")
-    check(len(traj) >= N_STEREO_VI - 10 and np.isfinite(est).all(), "stereo_vi: trajectory")
-    check(rmse < 0.05 and abs(s - 1.0) < 0.03, f"stereo_vi: ATE {rmse}, Horn scale {s}")
-    check(abs(R[2, 2]) > 0.99, f"stereo_vi: not gravity-aligned, R[2,2] {R[2, 2]}")
-    check(vel_err < 0.2, f"stereo_vi: median KF velocity error {vel_err}")
-    check(slam.async_mapper is None or not slam.async_mapper.errors, "stereo_vi: mapper errors")
-    check(all(r["patch"] == 2 for r in rows),
-          f"stereo_vi: patch-gather launches per frame {sorted(set(r['patch'] for r in rows))}"
+        f"events {[e['event'] for e in slam.local_mapper.debug_events]}; handshake rebases "
+        f"{rebases[0]}; longest frame wall {max(wall):.1f} ms (frame {int(np.argmax(wall))}); "
+        f"pose_inertial median {figures['pose_inertial_ms']} ms over {len(pose_inertial)} solves"
+        + (f"; worker errors {errors}, back-pressure waits {sum(waits):.2f} s in all"
+           if async_mapping else ""))
+    fused, fallback, host_pre = vi_run_summary(name, slam, rows, wall, smi)
+    check(m.imu_initialized, f"{name}: the IMU never initialized")
+    check(slam.get_tracking_state() == State.OK, f"{name}: final state not OK")
+    check(len(traj) >= n_frames - 10 and np.isfinite(est).all(), f"{name}: trajectory")
+    check(rmse < 0.05 and abs(s - 1.0) < 0.03, f"{name}: ATE {rmse}, Horn scale {s}")
+    check(abs(R[2, 2]) > 0.99, f"{name}: not gravity-aligned, R[2,2] {R[2, 2]}")
+    check(vel_err < 0.2, f"{name}: median KF velocity error {vel_err}")
+    check(not errors, f"{name}: mapper errors {errors}")
+    check(not async_mapping or rebases[0] >= 1, f"{name}: no handshake rebased the last frame")
+    redecided = redecided_frames(rows, slam.local_mapper.debug_events, name)
+    check(all(r["patch"] == 2 for i, r in enumerate(rows) if i not in redecided),
+          f"{name}: patch-gather launches per frame {sorted(set(r['patch'] for r in rows))}"
           f" != 2")
     check(sum(r["pose"] for r in host_pre) > 0,
-          "stereo_vi: no pose LM on the host path before the IMU init")
-    check(len(fused) >= 1 and len(captured) == 4,
-          f"stereo_vi: no frame after the IMU init took the fused VI step ({len(captured)} "
-          f"pose-LM calls kept)")
+          f"{name}: no pose LM on the host path before the IMU init")
+    check(len(fused) >= 1 and len(captured) == 1,
+          f"{name}: no frame after the IMU init took the fused VI step")
     check(all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
-          "stereo_vi: a fused VI frame did not make 4 pose-LM launches and one "
+          f"{name}: a fused VI frame did not make 4 pose-LM launches and one "
           "pose_inertial_solve")
-    shapes = fused_vi_lm_compare(captured, "stereo_vi", smi)
-    log(f"[stereo_vi] phase 12 in {time.perf_counter() - t_phase:.1f} s")
-    return launches, shapes
+    frame_gathers, frame_calls, at = captured[0]
+    shapes = fused_vi_lm_compare(frame_calls, name, smi)
+    if async_mapping:
+        check(len(frame_gathers) == 2, f"{name}: {len(frame_gathers)} gathers kept on frame {at}")
+        shapes = {"patch_gather": {side: patch_compare(*g, f"{name} frame {at} {side}")
+                                   for side, g in zip(("left", "right"), frame_gathers)},
+                  "pose_lm": shapes, "frame": at}
+    log(f"[{name}] phase 12{' (b)' if async_mapping else ''} in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, figures
 
 
 def fisheye_vi_config():
@@ -1863,6 +1929,7 @@ class vi_merge_probe:
         from tpuslam_torch.ops import orb
 
         self.rows, self.wall, self.merges, self.tries, self.parts = [], [], [], [], []
+        self.spans = []     # (start, end) perf_counter of each track_stereo call
         self.captured, self.systems = [], []
         probe, frame_gathers, frame_lm, raw = self, [], [], [None]
         LC = loop_closing.LoopCloser
@@ -1897,13 +1964,16 @@ class vi_merge_probe:
                 frame_lm.clear()
                 t0 = time.perf_counter()
                 out = real(*a, **kw)
-                probe.wall.append((time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter()
+                probe.wall.append((t1 - t0) * 1e3)
+                probe.spans.append((t0, t1))
                 row = dict(initialized=init, state=slam.get_tracking_state().name,
                            maps=len(slam.map.map_ids()),
                            **dict(zip(("patch", "pose", "vi_solves", "fused_vi", "host"),
                                       (x - y for x, y in zip(vi_counts(), before)))))
                 probe.rows.append(row)
-                if pending() and row["fused_vi"] and not row["host"] and len(frame_lm) == 4:
+                if (pending() and row["fused_vi"] and not row["host"] and len(frame_lm) == 4
+                        and len(frame_gathers) == 2):
                     probe.captured.append((list(frame_gathers), list(frame_lm),
                                            len(probe.rows) - 1))
                 return out
@@ -1939,7 +2009,8 @@ class vi_merge_probe:
             t0 = time.perf_counter()
             out = sv["correct"](closer, kf, cand, *a, merge=merge, **kw)
             if merge:
-                probe.merges[-1]["ms"] = (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+                probe.merges[-1].update(ms=(t1 - t0) * 1e3, span=(t0, t1))
             return out
 
         def snapshot(closer, fix_kf):
@@ -1985,7 +2056,7 @@ class vi_merge_probe:
             setattr(loop_closing, n, sv[n])
 
 
-def phase_vi_merge(dev, smi, branch):
+def phase_vi_merge(dev, smi, branch, async_mapping=False):
     """Phase 16: two stereo-inertial sessions over one place merged into one
     Atlas map, at full width (f32). branch "a": tests/torch_vi_merge.py's
     heave_sessions (the second session sees the first from its first
@@ -1999,8 +2070,11 @@ def phase_vi_merge(dev, smi, branch):
     stereo-inertial gates on one alignment of both sessions' rows, 2 patch
     gathers per frame and 4 pose LMs and a pose_inertial_solve per fused VI
     frame; the first fused VI frame after the merge holds both kernels
-    against their plain versions. Returns the launch counts and the kernel
-    records."""
+    against their plain versions. async_mapping (branch "b" only): the mapper
+    and the loop closer on the worker thread under tests/test_async_mapping.py's
+    bounded back-pressure, then flush(); no worker error. Returns the launch
+    counts, the kernel records and the run's figures (the merge frame, the
+    correction's ms, the longest frame walls of the second session)."""
     import shutil
 
     import torch
@@ -2016,17 +2090,22 @@ def phase_vi_merge(dev, smi, branch):
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
     import torch_vi_merge as vm
 
+    from torch_async import paced
+
     torch.set_num_threads(2)
-    name = f"vi_merge_{branch}"
+    check(branch == "b" or not async_mapping, "phase 16 runs branch a synchronously only")
+    name = f"vi_merge_{branch}" + ("_async" if async_mapping else "")
     t_phase = time.perf_counter()
-    n_a, start, n_b = N_VI_MERGE[branch]
+    n_a, start, n_b = N_VI_MERGE[branch + ("_async" if async_mapping else "")]
     kw = dict(height=H, width=W, fx=FX, fy=FY)
     seq, sessions = (vm.heave_sessions(n_a, start, n_b, **kw) if branch == "a"
                      else vm.loop_sessions(n_a, start, n_b, **kw))
     frames = render(seq, seq.n_frames, "stereo")
+    # the vocabulary on the synchronous branch's frames (the async one runs
+    # longer), so both branches look for the merge with the same words
+    n_voc = sum(N_VI_MERGE[branch][1:])
     voc = vm.vocabulary(seq, N_FEATURES, device=dev,
-                        frames=[frames[i][0] for i in range(0, seq.n_frames,
-                                                            seq.n_frames // vm.VOCAB_FRAMES)])
+                        frames=[frames[i][0] for i in range(0, n_voc, n_voc // vm.VOCAB_FRAMES)])
     log(f"[{name}] rendered {seq.n_frames} stereo frames {W}x{H} ({seq.traj.kind} heave, "
         f"{seq.traj.speed} m/s) and trained a vocabulary in {time.perf_counter() - t_phase:.1f} s;"
         f" sessions: frames 0..{n_a - 1}, then {start}..{start + n_b - 1} from "
@@ -2062,13 +2141,17 @@ def phase_vi_merge(dev, smi, branch):
             slam = probe.attach(System(
                 Pinhole([FX, FY, seq.cx, seq.cy], W, H), cfg, sensor=Sensor.IMU_STEREO,
                 imu_calib=ImuCalib(**VI_NOISE, freq=seq.imu_rate), bf=FX * BASELINE, vocab=voc,
-                device=dev))
+                async_mapping=async_mapping, device=dev))
             for s, sess in enumerate(sessions):
                 if s:
                     slam.change_dataset()
                 for i, t in enumerate(sess.timestamps()):
+                    if async_mapping:
+                        paced(slam)
                     slam.track_stereo(*frames[sess.start + i], float(t),
                                       imu=vm.session_imu(sess, i))
+            if async_mapping:
+                slam.async_mapper.flush(raise_errors=False)
             slam.shutdown()
             traj = np.asarray(slam.trajectory_tum())
         torch.cuda.synchronize()
@@ -2105,7 +2188,24 @@ def phase_vi_merge(dev, smi, branch):
                 log(f"[{name}] second session's frames {what} the merge: {len(ms)}, median "
                     f"{np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms, max "
                     f"{max(ms):.1f} ms")
-    log(f"[{name}] launches {launches}; fused VI frames {len(fused)}")
+    errors = list(slam.async_mapper.errors) if async_mapping else []
+    # the second session's frames whose track_stereo call overlapped the
+    # correction (the loop closer holds the map lock throughout)
+    under_lock = []
+    if probe.merges and "span" in probe.merges[0]:
+        c0, c1 = probe.merges[0]["span"]
+        under_lock = [w for w, (f0, f1) in zip(probe.wall, probe.spans) if f0 < c1 and f1 > c0]
+    figures = dict(merge_frame=merge_frames[0] if merge_frames else None,
+                   correct_ms=probe.merges[0].get("ms") if probe.merges else None,
+                   max_wall_second=max(probe.wall[n_a:]),
+                   max_wall_under_lock=max(under_lock) if under_lock else None,
+                   aborted=len(slam.loop_closer.merges_aborted))
+    log(f"[{name}] launches {launches}; fused VI frames {len(fused)}; the correction "
+        f"{figures['correct_ms']} ms; frames overlapping it {len(under_lock)}, longest wall "
+        f"{figures['max_wall_under_lock']} ms; the second session's longest frame wall "
+        f"{figures['max_wall_second']:.1f} ms"
+        + (f"; worker errors {errors}" if async_mapping else ""))
+    check(not errors, f"{name}: mapper errors {errors}")
     check(branch == "b" or (rep["maps"] == 1 and rep["state"] == "OK"), f"{name}: report")
     check(len(probe.merges) == 1 and merge_frames[0] >= n_a, f"{name}: merges {probe.merges}")
     check(probe.merges[0]["imu"] and (branch == "a" or probe.merges[0]["ba1"]),
@@ -2119,7 +2219,8 @@ def phase_vi_merge(dev, smi, branch):
           and all(m.kf_valid[k] and m.kf_map_id[k] == 0 for k in (tr.ref_kf, tr.last_kf)),
           f"{name}: something is left in the young map")
     check(gates["ok"], f"{name}: joint gates {gates}")
-    check(all(r["patch"] == 2 for r in rows),
+    redecided = redecided_frames(rows, slam.local_mapper.debug_events, name)
+    check(all(r["patch"] == 2 for i, r in enumerate(rows) if i not in redecided),
           f"{name}: patch gathers per frame {sorted(set(r['patch'] for r in rows))} != 2")
     check(len(fused) >= 1 and all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
           f"{name}: a fused VI frame did not make 4 pose-LM launches and one "
@@ -2132,8 +2233,9 @@ def phase_vi_merge(dev, smi, branch):
                                for side, g in zip(("left", "right"), gathers)},
               "pose_lm": fused_vi_lm_compare(calls, name, smi)}
     shapes["frame"] = at
-    log(f"[{name}] phase 16 ({branch}) in {time.perf_counter() - t_phase:.1f} s")
-    return launches, shapes
+    log(f"[{name}] phase 16 ({branch}{', async' if async_mapping else ''}) in "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, figures
 
 
 def kb8_pose_solve(dev, cam, n_valid=500, n=768, seed=4):
@@ -2305,7 +2407,8 @@ def phase_fisheye(dev, smi):
 class recorded_systems:
     """Keep every System that tpuslam_torch.run.main builds, so the phase
     can read the run's map after the call, with the host wall ms of each of
-    its track_stereo calls (frame_ms)."""
+    its track_stereo calls (frame_ms), their (start, end) perf_counter spans
+    and the tracking state after each."""
 
     def __enter__(self):
         from tpuslam_torch import run
@@ -2316,13 +2419,16 @@ class recorded_systems:
         class Recorded(base):
             def __init__(self, *a, **kw):
                 super().__init__(*a, **kw)
-                self.frame_ms = []
+                self.frame_ms, self.spans, self.states = [], [], []
                 systems.append(self)
 
             def track_stereo(self, *a, **kw):
                 t0 = time.perf_counter()
                 out = super().track_stereo(*a, **kw)
-                self.frame_ms.append((time.perf_counter() - t0) * 1e3)
+                t1 = time.perf_counter()
+                self.frame_ms.append((t1 - t0) * 1e3)
+                self.spans.append((t0, t1))
+                self.states.append(self.get_tracking_state().name)
                 return out
 
         run.System = Recorded
@@ -2345,10 +2451,10 @@ def same_tree(a, b, what, exact_weights=True):
 
 class loop_probe:
     """Record every Atlas merge a LoopCloser corrects, (frame id of the
-    current keyframe, current keyframe, candidate keyframe), and the host
-    ms of each call of the loop closer's solvers (the Sim3 RANSAC and
-    refinement, the essential graph, the weld BA), synchronized around
-    each call."""
+    current keyframe, current keyframe, candidate keyframe), with the
+    correction's (start, end) perf_counter span, and the host ms of each
+    call of the loop closer's solvers (the Sim3 RANSAC and refinement, the
+    essential graph, the weld BA), synchronized around each call."""
 
     PARTS = ("sim3_ransac", "optimize_sim3", "optimize_essential_graph", "window_ba")
 
@@ -2357,15 +2463,18 @@ class loop_probe:
 
         from tpuslam_torch.engine import loop_closing
 
-        self.merges, self.parts = [], []
+        self.merges, self.parts, self.spans = [], [], []
         self.saved = {n: getattr(loop_closing, n) for n in self.PARTS}
         self.saved_correct = loop_closing.LoopCloser._correct_loop
-        merges, parts, real = self.merges, self.parts, self.saved_correct
+        merges, parts, spans, real = self.merges, self.parts, self.spans, self.saved_correct
 
         def correct(closer, kf, cand, *a, merge=False, **kw):
+            t0 = time.perf_counter()
+            out = real(closer, kf, cand, *a, merge=merge, **kw)
             if merge:
                 merges.append((int(closer.map.kf_frame_id[kf]), int(kf), int(cand)))
-            return real(closer, kf, cand, *a, merge=merge, **kw)
+                spans.append((t0, time.perf_counter()))
+            return out
 
         def timed(name, fn):
             def call(*a, **kw):
@@ -2615,8 +2724,79 @@ def phase_cli(dev, smi, images, images_b):
           f"cli C: {counts['cli_c']['patch_gather']} patch-gather launches, not 2 per frame")
     check(counts["cli_c"]["pose_lm"] > 0, "cli C: no pose-LM launch")
     log(f"[cli C] run C in {time.perf_counter() - t_c:.1f} s")
+    counts["cli_d"] = phase_cli_d(argv, out, gt, merges[0][0], smi)
     shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
+def phase_cli_d(argv_c, out, gt, merge_c, smi):
+    """Phase 9 run D: run C's command (argv_c, its trees and vocabulary) with
+    the mapper on its own thread and pipelined tracking (bench.py's
+    configuration) across the session boundary: run C's gates and no worker
+    error. Prints the merge's frame against run C's (merge_c, the frame id of
+    its keyframe), the frames tracked, lost and relocalized after the
+    correction, session B's median and p90 frame ms and the longest frame
+    wall. Returns the launch counts."""
+    import torch
+
+    from tpuslam_torch import run
+    from tpuslam_torch.eval.ate import associate, ate_rmse
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    t_d = time.perf_counter()
+    out["d"] = out["c"].replace("c_traj", "d_traj")
+    argv = argv_c[:argv_c.index("--output")] + ["--output", out["d"], "--async-mapping",
+                                                 "--pipelined"]
+    with recorded_systems() as systems, loop_probe() as probe:
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now()
+    slam, merges = systems[0], probe.merges
+    errors = list(slam.async_mapper.errors)
+    log(f"[cli D] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[cli D] report {json.dumps(rep)}; run.main wall {wall:.1f} s; launches {counts}; "
+        f"merges (frame id, KF, candidate KF) {merges} (run C: keyframe of frame {merge_c}); "
+        f"loops closed {slam.loop_closer.n_loops_closed}; worker errors {errors}; card {smi}")
+    stage_table("cli D", GLOBAL_TIMER)
+    if probe.spans:
+        c0, c1 = probe.spans[0]
+        spans = slam.spans
+        at = next((i for i, (f0, f1) in enumerate(spans) if f1 > c0), len(spans))
+        after = [i for i, (f0, _) in enumerate(spans) if f0 >= c1]
+        states = [slam.states[i] for i in after]
+        reloc = sum(1 for a, b in zip(slam.states[at:], slam.states[at + 1:])
+                    if a != "OK" and b == "OK")
+        under = [slam.frame_ms[i] for i, (f0, f1) in enumerate(spans) if f0 < c1 and f1 > c0]
+        log(f"[cli D] the correction ({(c1 - c0) * 1e3:.1f} ms, on the mapping thread) began "
+            f"in frame {at} (session B's frame {at - N_CLI}); after it {len(after)} frames: "
+            f"{states.count('OK')} OK, {len(states) - states.count('OK')} not OK, {reloc} "
+            f"relocalized; frames overlapping it {len(under)}, longest wall "
+            f"{max(under) if under else None} ms")
+    for name, ms in (("A", slam.frame_ms[:N_CLI]), ("B", slam.frame_ms[N_CLI:])):
+        log(f"[cli D] session {name}: {len(ms)} frames, median {np.median(ms):.2f} ms, p90 "
+            f"{np.percentile(ms, 90):.2f} ms, max {max(ms):.1f} ms (host wall of track_stereo)")
+    traj = np.loadtxt(out["d"], ndmin=2)
+    i_e, i_g = associate(traj[:, 0], gt[:, 0])
+    rmse, _ = ate_rmse(traj[i_e, 1:4], gt[i_g, 1:4], with_scale=False)
+    log(f"[cli D] trajectory file: {len(traj)} rows ({len(i_e)} matched), joint unscaled ATE "
+        f"{rmse * 100:.3f} cm")
+    check(rep["state"] == "OK" and rep["maps"] == 1 and rep["frames"] == 2 * N_CLI,
+          f"cli D: report {rep}")
+    check(not errors, f"cli D: mapper errors {errors}")
+    check(len(merges) == 1 and merges[0][0] >= N_CLI and slam.loop_closer.n_loops_closed == 1,
+          f"cli D: merges {merges}, loops closed {slam.loop_closer.n_loops_closed}")
+    check(len(traj) == 2 * N_CLI and len(i_e) == len(traj) and rmse < 0.05,
+          f"cli D: {len(traj)} rows, {len(i_e)} matched, joint ATE {rmse}")
+    check(counts["patch_gather"] == 2 * 2 * N_CLI,
+          f"cli D: {counts['patch_gather']} patch-gather launches, not 2 per frame")
+    check(counts["pose_lm"] > 0, "cli D: no pose-LM launch")
+    log(f"[cli D] run D in {time.perf_counter() - t_d:.1f} s")
     return counts
 
 
@@ -2801,22 +2981,31 @@ def main():
         by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     finally:
         by_path["vi_schedule"], vi_schedule_shapes = vi_schedule.result()
-    # phase 16's two branches and phase 14 run in processes of their own
-    # beside phases 11-13
-    vi_merge = {b: PhaseInChild("phase_vi_merge", dev, smi, b) for b in N_VI_MERGE}
+    # phase 16's branches (b also with the mapper on its own thread), phase 12
+    # (b) and phase 14 run in processes of their own beside phases 11-13
+    vi_merge = {b: PhaseInChild("phase_vi_merge", dev, smi, b[0], b != b[0])
+                for b in N_VI_MERGE}
+    stereo_vi_async = PhaseInChild("phase_stereo_vi", dev, smi, True)
     fisheye_mono_vi = PhaseInChild("phase_fisheye_vi", dev, smi, False)
-    vi_merge_shapes = {}
+    vi_merge_shapes, vi_merge_figures = {}, {}
     try:
         tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
         by_path.update(tools)
-        by_path["stereo_vi"], stereo_vi_shapes = phase_stereo_vi(dev, smi)
+        by_path["stereo_vi"], stereo_vi_shapes, stereo_vi_figures = phase_stereo_vi(dev, smi)
         by_path["fisheye_stereo_vi"], shapes = phase_fisheye_vi(dev, smi, True)
         fish_shapes.update(shapes)
     finally:
         by_path["fisheye_mono_vi"], shapes = fisheye_mono_vi.result()
         fish_shapes.update(shapes)
+        by_path["stereo_vi_async"], stereo_vi_async_shapes, figures = stereo_vi_async.result()
+        log(f"[stereo_vi_async] against phase 12's synchronous run: IMU init after frame "
+            f"{figures['init_frame']} (sync {stereo_vi_figures['init_frame']}); pose_inertial "
+            f"median {figures['pose_inertial_ms']} ms (sync "
+            f"{stereo_vi_figures['pose_inertial_ms']} ms); longest frame wall "
+            f"{figures['max_frame_ms']:.1f} ms (sync {stereo_vi_figures['max_frame_ms']:.1f} ms)")
         for b, child in vi_merge.items():
-            by_path[f"vi_merge_{b}"], vi_merge_shapes[b] = child.result()
+            by_path[f"vi_merge_{b}"], vi_merge_shapes[b], vi_merge_figures[b] = child.result()
+        log(f"[vi_merge_b_async] against branch b's synchronous run: {vi_merge_figures}")
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
@@ -2824,23 +3013,32 @@ def main():
     patch["vi_merge_shapes"] = {f"{b}_{side}": dict(r, frame=v["frame"])
                                 for b, v in vi_merge_shapes.items()
                                 for side, r in v["patch_gather"].items()}
+    patch["stereo_vi_async_shapes"] = {
+        side: dict(r, frame=stereo_vi_async_shapes["frame"])
+        for side, r in stereo_vi_async_shapes["patch_gather"].items()}
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
                                 patch["vi_schedule_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()]
-                               + [r["max_abs_err"] for r in patch["vi_merge_shapes"].values()])
+                               + [r["max_abs_err"] for r in patch["vi_merge_shapes"].values()]
+                               + [r["max_abs_err"]
+                                  for r in patch["stereo_vi_async_shapes"].values()])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
+    lm["stereo_vi_async_shapes"] = dict(stereo_vi_async_shapes["pose_lm"],
+                                        frame=stereo_vi_async_shapes["frame"])
     lm["vi_schedule_shapes"] = vi_schedule_shapes["pose_lm"]
     lm["vi_merge_shapes"] = {b: dict(v["pose_lm"], frame=v["frame"])
                              for b, v in vi_merge_shapes.items()}
     lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
-                             lm["vi_schedule_shapes"].pop("max_abs_err")]
+                             lm["vi_schedule_shapes"].pop("max_abs_err"),
+                             lm["stereo_vi_async_shapes"].pop("max_abs_err")]
                             + [v.pop("max_abs_err") for v in lm["vi_merge_shapes"].values()]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
                       "b_async_pipelined": N_SYSTEM, "mono_loop": N_LOOP,
                       "mono_loop_dist": N_LOOP, "rgbd": N_RGBD,
                       "mono_vi": N_VI, "mono_vi_async": N_VI, "stereo_vi": N_STEREO_VI,
+                      "stereo_vi_async": N_STEREO_VI_ASYNC, "cli_d": 2 * N_CLI,
                       "fisheye_stereo": N_FISH, "fisheye_stereo_vi": N_FISH_STEREO_VI,
                       "fisheye_mono_vi": N_FISH_MONO_VI, "vi_schedule": N_VI_SCHEDULE,
                       "cli": N_CLI,

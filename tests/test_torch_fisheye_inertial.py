@@ -12,7 +12,9 @@ packages (the fused steps are pinhole-only): process_stereo_fisheye, the
 camera-generic KB8 pose solve until the mapper initializes the IMU (its
 10th keyframe), then the KB8 pose_inertial_solve. Both Systems get the
 same numpy images and IMU arrays; the port runs in f64, as tpuslam does
-here (the card runs f32: chip_smoke.py phase 13).
+here (the card runs f32: chip_smoke.py phase 13). tpuslam's System runs in
+a process of its own beside the port's (tests/torch_child.py), and the two
+are compared frame by frame afterwards.
 
   * The slice, 31 frames in lockstep: on every frame the tracking state is
     equal; the stereo init happens on the same frame, by frame 3; until
@@ -54,6 +56,7 @@ from tpuslam_torch.imu.preintegration import ImuCalib
 from tpuslam_torch.solve import pose_inertial, pose_opt_cuda, pose_opt_dispatch
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg
+import torch_child
 from torch_fisheye_rig import BASELINE, kb8_rig
 from torch_vi_heave import heave_sequence
 
@@ -84,26 +87,48 @@ def route_spies(mp, calls):
     mp.setattr(pose_inertial, "pose_inertial_solve", spy("vi", real[2]))
 
 
-@pytest.fixture(scope="module")
-def runs():
-    """Both Systems in lockstep over the slice, then the port alone to
-    N_FRAMES. Returns what the tests read."""
+def _sequence():
     cam, cam2, Trl = kb8_rig()
     seq = heave_sequence(n_frames=N_FRAMES, fps=10, speed=0.5, imu_rate=200.0, camera=cam,
                          camera2=cam2, Trl=Trl)
-    bf, Tlr = cam.fx * BASELINE, np.linalg.inv(Trl)
+    return seq, (cam, cam2, Trl)
+
+
+def _tpuslam_slice():
+    """tpuslam's System over the slice (in a process of its own): per frame
+    its pose, state, keyframe count and IMU flag, then its trajectory and
+    the mapper's events."""
+    seq, (cam, cam2, Trl) = _sequence()
     jcams = [JKB8(list(c.full_params), c.width, c.height, lapping=c.lapping)
              for c in (cam, cam2)]
     js = JSystem(jcams[0], JSlamConfig(orb=JOrbConfig(n_features=700),
                                        tracking=JTrackingConfig(**TRACKING)),
-                 sensor=JSensor.IMU_STEREO, imu_calib=JImuCalib(**NOISE), bf=bf,
-                 camera2=jcams[1], Tlr=Tlr)
+                 sensor=JSensor.IMU_STEREO, imu_calib=JImuCalib(**NOISE), bf=cam.fx * BASELINE,
+                 camera2=jcams[1], Tlr=np.linalg.inv(Trl))
+    times = seq.timestamps()
+    out = dict(T=[], state=[], n_kf=[], init=[])
+    for i in range(N_SLICE):
+        out["T"].append(js.track_stereo(seq.frame(i), seq.frame(i, right=True), times[i],
+                                        imu=_imu(seq, times, i)))
+        out["state"].append(js.get_tracking_state().name)
+        out["n_kf"].append(len(js.map.valid_kf_ids()))
+        out["init"].append(js.map.imu_initialized)
+    return dict(out, traj=js.trajectory_tum(), events=list(js.local_mapper.debug_events))
+
+
+@pytest.fixture(scope="module")
+def runs():
+    """Both Systems in lockstep over the slice (tpuslam's in a process of its
+    own, tests/torch_child.py), then the port alone to N_FRAMES. Returns what
+    the tests read."""
+    jax_side = torch_child.start(_tpuslam_slice)
+    seq, (cam, cam2, Trl) = _sequence()
     ts = System(cam, SlamConfig(orb=OrbConfig(n_features=700),
                                 tracking=TrackingConfig(**TRACKING)),
-                sensor=Sensor.IMU_STEREO, imu_calib=ImuCalib(**NOISE), bf=bf, camera2=cam2,
-                Tlr=Tlr, dtype=torch.float64, device="cpu")
+                sensor=Sensor.IMU_STEREO, imu_calib=ImuCalib(**NOISE), bf=cam.fx * BASELINE,
+                camera2=cam2, Tlr=np.linalg.inv(Trl), dtype=torch.float64, device="cpu")
     times = seq.timestamps()
-    steps, rows, calls = [], [], {"kernel": 0, "generic": 0, "vi": []}
+    port, rows, calls = [], [], {"kernel": 0, "generic": 0, "vi": []}
     with pytest.MonkeyPatch.context() as mp:
         route_spies(mp, calls)
         for i in range(N_FRAMES):
@@ -113,18 +138,17 @@ def runs():
             rows.append((before[2], calls["generic"] - before[0], len(calls["vi"]) - before[1],
                          ts.get_tracking_state().name))
             if i < N_SLICE:
-                Tj = js.track_stereo(left, right, times[i], imu=imu)
-                steps.append(dict(T=(Tj, Tt), state=(js.get_tracking_state().name,
-                                                     ts.get_tracking_state().name),
-                                  n_kf=(len(js.map.valid_kf_ids()), len(ts.map.valid_kf_ids())),
-                                  init=(js.map.imu_initialized, ts.map.imu_initialized)))
+                port.append((Tt, ts.get_tracking_state().name, len(ts.map.valid_kf_ids()),
+                             ts.map.imu_initialized))
             if i == N_SLICE - 1:
-                slice_traj = (js.trajectory_tum(), ts.trajectory_tum())
-                events = (list(js.local_mapper.debug_events),
-                          list(ts.local_mapper.debug_events))
+                port_traj, port_events = ts.trajectory_tum(), list(ts.local_mapper.debug_events)
     ts.shutdown()
-    return dict(seq=seq, ts=ts, steps=steps, rows=rows, calls=calls, slice_traj=slice_traj,
-                events=events)
+    j = jax_side.result()
+    steps = [dict(T=(j["T"][i], Tt), state=(j["state"][i], state), n_kf=(j["n_kf"][i], n_kf),
+                  init=(j["init"][i], init))
+             for i, (Tt, state, n_kf, init) in enumerate(port)]
+    return dict(seq=seq, ts=ts, steps=steps, rows=rows, calls=calls,
+                slice_traj=(j["traj"], port_traj), events=(j["events"], port_events))
 
 
 def test_slice_matches_tpuslam_fisheye_stereo_inertial_system(runs):

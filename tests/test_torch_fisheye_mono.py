@@ -8,7 +8,9 @@ both packages; the two-view init runs reconstruct_two_views on the
 unprojected KB8 rays. The port's two-view RANSAC samples are tpuslam's own
 draws (tests/test_torch_vi_system.py's jax_draw), both Systems get
 the same numpy images and IMU arrays, and the port runs in f64, as
-tpuslam does here (the card runs f32: chip_smoke.py phase 14).
+tpuslam does here (the card runs f32: chip_smoke.py phase 14). tpuslam's
+mono-inertial System runs in a process of its own beside the port's
+(tests/torch_child.py), and the two are compared frame by frame afterwards.
 
   * Monocular: tests/test_torch_fisheye_mono_slice.py.
   * Mono-inertial (vi_excite, IMU at 200 Hz, tests/test_torch_vi_system.py's
@@ -49,6 +51,7 @@ from tpuslam_torch.ops import twoview
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg, jax_draw
 from test_torch_fisheye_inertial import route_spies
+import torch_child
 from torch_fisheye_rig import kb8_rig
 
 torch.set_num_threads(2)
@@ -70,15 +73,37 @@ def _systems(sensor, **imu):
     return cam, js, ts
 
 
+def _sequence(cam):
+    return SyntheticSequence(n_frames=N_MONO_VI, fps=10, speed=0.5, imu_rate=200.0,
+                             kind="vi_excite", camera=cam)
+
+
+def _tpuslam_slice():
+    """tpuslam's IMU_MONOCULAR System over the slice (in a process of its
+    own): per frame its pose, state, keyframe count and IMU flag, then its
+    trajectory and the mapper's events."""
+    cam, js, _ = _systems("IMU_MONOCULAR", imu=True)
+    seq = _sequence(cam)
+    times = seq.timestamps()
+    out = dict(T=[], state=[], n_kf=[], init=[])
+    for i in range(N_SLICE):
+        out["T"].append(js.track_monocular(seq.frame(i), times[i], imu=_imu(seq, times, i)))
+        out["state"].append(js.get_tracking_state().name)
+        out["n_kf"].append(len(js.map.valid_kf_ids()))
+        out["init"].append(js.map.imu_initialized)
+    return dict(out, traj=js.trajectory_tum(), events=list(js.local_mapper.debug_events))
+
+
 @pytest.fixture(scope="module")
 def mono_vi_runs():
-    """Both IMU_MONOCULAR Systems in lockstep over the slice, then the port
-    alone to N_MONO_VI. Returns what the tests read."""
-    cam, js, ts = _systems("IMU_MONOCULAR", imu=True)
-    seq = SyntheticSequence(n_frames=N_MONO_VI, fps=10, speed=0.5, imu_rate=200.0,
-                            kind="vi_excite", camera=cam)
+    """Both IMU_MONOCULAR Systems in lockstep over the slice (tpuslam's in a
+    process of its own, tests/torch_child.py), then the port alone to
+    N_MONO_VI. Returns what the tests read."""
+    jax_side = torch_child.start(_tpuslam_slice)
+    cam, _, ts = _systems("IMU_MONOCULAR", imu=True)
+    seq = _sequence(cam)
     times = seq.timestamps()
-    steps, rows, calls = [], [], {"kernel": 0, "generic": 0, "vi": []}
+    port, rows, calls = [], [], {"kernel": 0, "generic": 0, "vi": []}
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(twoview, "draw_samples", jax_draw)
         route_spies(mp, calls)
@@ -89,18 +114,17 @@ def mono_vi_runs():
             rows.append((before[2], calls["generic"] - before[0], len(calls["vi"]) - before[1],
                          ts.get_tracking_state().name))
             if i < N_SLICE:
-                Tj = js.track_monocular(img, times[i], imu=imu)
-                steps.append(dict(T=(Tj, Tt), state=(js.get_tracking_state().name,
-                                                     ts.get_tracking_state().name),
-                                  n_kf=(len(js.map.valid_kf_ids()), len(ts.map.valid_kf_ids())),
-                                  init=(js.map.imu_initialized, ts.map.imu_initialized)))
+                port.append((Tt, ts.get_tracking_state().name, len(ts.map.valid_kf_ids()),
+                             ts.map.imu_initialized))
             if i == N_SLICE - 1:
-                slice_traj = (js.trajectory_tum(), ts.trajectory_tum())
-                events = (list(js.local_mapper.debug_events),
-                          list(ts.local_mapper.debug_events))
+                port_traj, port_events = ts.trajectory_tum(), list(ts.local_mapper.debug_events)
     ts.shutdown()
-    return dict(seq=seq, ts=ts, steps=steps, rows=rows, calls=calls, slice_traj=slice_traj,
-                events=events)
+    j = jax_side.result()
+    steps = [dict(T=(j["T"][i], Tt), state=(j["state"][i], state), n_kf=(j["n_kf"][i], n_kf),
+                  init=(j["init"][i], init))
+             for i, (Tt, state, n_kf, init) in enumerate(port)]
+    return dict(seq=seq, ts=ts, steps=steps, rows=rows, calls=calls,
+                slice_traj=(j["traj"], port_traj), events=(j["events"], port_events))
 
 
 def test_slice_matches_tpuslam_fisheye_mono_inertial_system(mono_vi_runs):

@@ -4,12 +4,14 @@
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
     helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
-    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py), imports tpuslam
-    or jax, nor what the card host lacks: cv2, yaml, matplotlib, PIL (a
+    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py),
+    imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
+    matplotlib, PIL (a
     subprocess with all of them blocked imports them all and writes a
     TUM-VI tree with make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
     matplotlib only when it draws). The helpers import nothing but the
-    port and numpy, and scripts/tum_vi_examples_torch.sh and
+    port and numpy (torch_async: the standard library), and
+    scripts/tum_vi_examples_torch.sh and
     scripts/euroc_examples_torch.sh drive the port's CLI.
   * Every entry point defaults to the card: without one it raises, it
     never carries on on the CPU. scripts/vi_f32_experiment_torch.py's
@@ -71,6 +73,7 @@ sys.path.insert(0, "tests")
 import torch_vi_heave
 import torch_fisheye_rig
 import torch_vi_merge
+import torch_async
 assert len(torch_vi_merge.heave_sessions(2, 1, 2)[1]) == 2
 # the TUM-VI tree writer, on a 2-frame KB8 heave sequence at 64x64
 import tempfile
@@ -132,6 +135,12 @@ def test_vi_merge_helper_imports_only_the_port_and_numpy():
     standard library and the heave helper."""
     assert _import_roots("torch_vi_merge.py") == {"importlib", "os", "numpy", "tpuslam_torch",
                                                   "torch_vi_heave"}
+
+
+def test_async_helper_imports_only_the_standard_library():
+    """So does tests/torch_async.py (the async phases' back-pressure and
+    handshake counter)."""
+    assert _import_roots("torch_async.py") == {"threading", "time"}
 
 
 def test_jacfwd_is_safe_in_any_thread():

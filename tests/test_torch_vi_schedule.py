@@ -15,7 +15,9 @@ the local inertial BAs with zero priors.
   * The schedule in lockstep: tpuslam's IMU_MONOCULAR System and the port's
     (f64, as tpuslam runs here) on the same frames and IMU samples, the
     port's two-view draw tpuslam's own (tests/test_torch_vi_system.py's
-    jax_draw). Every frame the same tracking state; up to LOCKSTEP also the
+    jax_draw); tpuslam's System runs in a process of its own beside the
+    port's (tests/torch_child.py), and the two are compared frame by frame
+    afterwards. Every frame the same tracking state; up to LOCKSTEP also the
     keyframe count and the poses (1 cm, 0.2 degrees). There they part on a
     borderline decision: on frame 7 keyframe 2's fuse predicts the level
     of point 104 in keyframe 0 as ceil(log(1.44) / log(1.2)) on a ratio
@@ -70,6 +72,7 @@ from tpuslam_torch.map.store import SlamMap, map_from_numpy, map_state
 from tpuslam_torch.ops import twoview
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg, jax_draw
+import torch_child
 
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -148,51 +151,86 @@ def _keep_branches(mapper, rotations, branches):
 
 
 def _spy(mp, module, name, calls, key):
-    """Wrap module.name; record each call's keyword arguments under key."""
+    """Wrap module.name; record each call's keyword arguments that the tests
+    read (opt_bias, prior_g, prior_a) under key."""
     real = getattr(module, name)
 
     def spied(*a, **kw):
-        calls[key].append(kw)
+        calls[key].append({k: kw[k] for k in ("opt_bias", "prior_g", "prior_a") if k in kw})
         return real(*a, **kw)
 
     mp.setattr(module, name, spied)
 
 
+def _end_state(slam):
+    """What test_schedule_end_state reads of a System after its run."""
+    m = slam.map
+    kfs = m.valid_kf_ids()
+    return dict(state=slam.get_tracking_state().name,
+                flags=(m.imu_initialized, m.inertial_ba1, m.inertial_ba2),
+                traj=slam.trajectory_tum(), n_kfs=len(kfs),
+                finite={f: bool(np.isfinite(np.asarray(getattr(m, f))[kfs]).all())
+                        for f in KF_STATE},
+                orth=script.orthonormality_error(m))
+
+
+def _tpuslam_run():
+    """tpuslam's IMU_MONOCULAR System over the script's sequence (in a
+    process of its own): per frame its pose, state, keyframe count and IMU
+    flag; its IMU inits and local inertial BAs (their keyword arguments);
+    each branch's inputs and result (_keep_branches); its events and end
+    state."""
+    seq = script.sequence(N_SCHEDULE, stereo=False)
+    js = JSystem(JPinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height),
+                 _config()[0], sensor=JSensor.IMU_MONOCULAR, imu_calib=JImuCalib(**NOISE))
+    times = seq.timestamps()
+    calls = {"jax_init": [], "jax_lba": []}
+    out, rotations, branches = dict(T=[], state=[], n_kf=[], init=[]), [], {}
+    _keep_branches(js.local_mapper, rotations, branches)
+    with pytest.MonkeyPatch.context() as mp:
+        _scaled_rotations(mp, JSlamMap, rotations)
+        # tpuslam's mapper imports these from engine.inertial at each call
+        _spy(mp, j_inertial, "run_imu_init", calls, "jax_init")
+        _spy(mp, j_inertial, "local_inertial_ba", calls, "jax_lba")
+        for i in range(N_SCHEDULE):
+            out["T"].append(js.track_monocular(seq.frame(i), times[i], imu=_imu(seq, times, i)))
+            out["state"].append(js.get_tracking_state().name)
+            out["n_kf"].append(len(js.map.valid_kf_ids()))
+            out["init"].append(js.map.imu_initialized)
+    return dict(out, calls=calls, branches=branches, events=list(js.local_mapper.debug_events),
+                end=_end_state(js))
+
+
 @pytest.fixture(scope="module")
 def schedule_runs():
     """tpuslam's and the port's IMU_MONOCULAR Systems in lockstep over the
-    script's sequence with the shortened schedule."""
+    script's sequence with the shortened schedule, tpuslam's in a process of
+    its own (tests/torch_child.py), compared frame by frame afterwards."""
+    jax_side = torch_child.start(_tpuslam_run)
     seq = script.sequence(N_SCHEDULE, stereo=False)
-    cam = [seq.fx, seq.fy, seq.cx, seq.cy]
-    jcfg, tcfg = _config()
-    js = JSystem(JPinhole(cam, seq.width, seq.height), jcfg, sensor=JSensor.IMU_MONOCULAR,
-                 imu_calib=JImuCalib(**NOISE))
-    ts = System(Pinhole(cam, seq.width, seq.height), tcfg, sensor=Sensor.IMU_MONOCULAR,
-                imu_calib=ImuCalib(**NOISE), dtype=torch.float64, device="cpu")
+    ts = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height), _config()[1],
+                sensor=Sensor.IMU_MONOCULAR, imu_calib=ImuCalib(**NOISE), dtype=torch.float64,
+                device="cpu")
     times = seq.timestamps()
-    calls = {k: [] for k in ("jax_init", "port_init", "jax_lba", "port_lba")}
-    steps, rotations, branches = [], [], {}
-    _keep_branches(js.local_mapper, rotations, branches)
+    calls = {"port_init": [], "port_lba": []}
+    port = []
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(twoview, "draw_samples", jax_draw)
-        _scaled_rotations(mp, JSlamMap, rotations)
-        # tpuslam's mapper imports these from engine.inertial at each call,
-        # the port's mapper binds them when engine.local_mapping is imported
-        _spy(mp, j_inertial, "run_imu_init", calls, "jax_init")
-        _spy(mp, j_inertial, "local_inertial_ba", calls, "jax_lba")
+        # the port's mapper binds these when engine.local_mapping is imported
         _spy(mp, local_mapping, "run_imu_init", calls, "port_init")
         _spy(mp, local_mapping, "local_inertial_ba", calls, "port_lba")
         for i in range(N_SCHEDULE):
-            img, imu = seq.frame(i), _imu(seq, times, i)
-            Tj = js.track_monocular(img, times[i], imu=imu)
-            Tt = ts.track_monocular(img, times[i], imu=imu)
-            steps.append(dict(T=(Tj, Tt), state=(js.get_tracking_state().name,
-                                                 ts.get_tracking_state().name),
-                              n_kf=(len(js.map.valid_kf_ids()), len(ts.map.valid_kf_ids())),
-                              init=(js.map.imu_initialized, ts.map.imu_initialized)))
+            Tt = ts.track_monocular(seq.frame(i), times[i], imu=_imu(seq, times, i))
+            port.append((Tt, ts.get_tracking_state().name, len(ts.map.valid_kf_ids()),
+                         ts.map.imu_initialized))
     ts.shutdown()
-    return dict(seq=seq, systems={"jax": js, "port": ts}, steps=steps, calls=calls,
-                branches=branches)
+    j = jax_side.result()
+    steps = [dict(T=(j["T"][i], Tt), state=(j["state"][i], state), n_kf=(j["n_kf"][i], n_kf),
+                  init=(j["init"][i], init))
+             for i, (Tt, state, n_kf, init) in enumerate(port)]
+    return dict(seq=seq, steps=steps, calls=dict(calls, **j["calls"]), branches=j["branches"],
+                events={"jax": j["events"], "port": list(ts.local_mapper.debug_events)},
+                end={"jax": j["end"], "port": _end_state(ts)})
 
 
 def test_schedule_lockstep(schedule_runs):
@@ -212,8 +250,7 @@ def test_schedule_lockstep(schedule_runs):
 
 
 def test_schedule_events_match_tpuslam(schedule_runs):
-    js, ts = schedule_runs["systems"]["jax"], schedule_runs["systems"]["port"]
-    ev_j, ev_t = js.local_mapper.debug_events, ts.local_mapper.debug_events
+    ev_j, ev_t = schedule_runs["events"]["jax"], schedule_runs["events"]["port"]
     print("tpuslam", [(e["event"], e["t"]) for e in ev_j])
     print("port   ", [(e["event"], e["t"]) for e in ev_t])
     assert [e["event"] for e in ev_j] == EVENTS
@@ -237,27 +274,25 @@ def test_schedule_events_match_tpuslam(schedule_runs):
 
 @pytest.mark.parametrize("name", ["jax", "port"])
 def test_schedule_end_state(schedule_runs, name):
-    seq, slam = schedule_runs["seq"], schedule_runs["systems"][name]
-    m = slam.map
-    assert slam.get_tracking_state().name == "OK"
-    assert m.imu_initialized and m.inertial_ba1 and m.inertial_ba2
-    traj = slam.trajectory_tum()
+    seq, end = schedule_runs["seq"], schedule_runs["end"][name]
+    assert end["state"] == "OK"
+    assert all(end["flags"])      # imu_initialized, inertial_ba1, inertial_ba2
+    traj = end["traj"]
     est = np.array([r[1:4] for r in traj])
     gt = _gt_centers(seq, traj)
     rmse, scale = ate_rmse(est, gt, with_scale=True)
     R, _, s, _ = horn_align(est, gt, with_scale=True)
-    other = schedule_runs["systems"]["port" if name == "jax" else "jax"].trajectory_tum()
+    other = schedule_runs["end"]["port" if name == "jax" else "jax"]["traj"]
     s_other = horn_align(np.array([r[1:4] for r in other]), _gt_centers(seq, other),
                          with_scale=True)[2]
-    kfs = m.valid_kf_ids()
-    orth = script.orthonormality_error(m)
+    orth = end["orth"]
     print(f"{name}: scaled ATE {rmse:.4f} m, Horn scale {s:.4f}, |R[2,2]| {abs(R[2, 2]):.6f}, "
-          f"max |R^T R - I| {orth:.3e} over {len(kfs)} keyframes")
+          f"max |R^T R - I| {orth:.3e} over {end['n_kfs']} keyframes")
     assert rmse < 0.15, rmse
     assert abs(s / s_other - 1.0) < 0.1, (s, s_other)
     assert abs(R[2, 2]) > 0.99, R
-    for field in ("kf_R", "kf_t", "kf_vel", "kf_bg", "kf_ba"):
-        assert np.isfinite(np.asarray(getattr(m, field))[kfs]).all(), field
+    for field in KF_STATE:
+        assert end["finite"][field], field
     assert orth < 1e-4, orth
 
 

@@ -49,6 +49,7 @@ import torch
 from ..map.store import FrameFeatures, SlamMap
 from ..ops import match as M
 from ..ops import twoview as TV
+from ..parallel.async_mapping import AsyncMapper
 from ..solve import ba as B
 from ..solve.pnp import pnp_ransac
 from ..solve.pose_opt_dispatch import pose_optimize_best as pose_optimize
@@ -82,6 +83,9 @@ class Frame:
     v: np.ndarray | None = None   # world velocity of the body (inertial)
     bg: np.ndarray | None = None  # per-frame bias estimates (inertial)
     ba: np.ndarray | None = None
+    # (kf, Rcw, tcw): a keyframe's pose when this frame's pose was computed
+    # against the map (Tracker._anchor, _reanchor)
+    anchor: tuple | None = None
 
     def center(self):
         return -self.R.T @ self.t
@@ -377,6 +381,7 @@ class Tracker:
                 return frame
         if fused_ok:
             with self.map.lock:
+                self._anchor(frame)
                 with T.stage("track_fused"):
                     res = self._track_fused(frame, img, img_right)
                 if res is not None:
@@ -387,28 +392,10 @@ class Tracker:
         # associations (ref per-frame chain: PreintegrateIMU
         # Tracking.cc:909 -> PredictStateIMU :669 -> TrackLocalMap with
         # PoseInertialOptimization* Optimizer.cc:7479/7874)
-        vi_fused_ok = (
-            not ran
-            and self.fused_enabled
-            and self.state == State.OK
-            and not self._force_new_map
-            and self.use_imu
-            and self.map.imu_initialized
-            and self.camera2 is None
-            and depth is None
-            and self.camspec.kind == "pinhole"
-            and self.last_frame is not None
-            and self.last_frame.mp is not None
-            and self.last_frame.R is not None
-        )
+        vi_fused_ok = not ran and self._vi_fused_ok(depth)
         if vi_fused_ok:
             with self.map.lock:
-                self._sync_imu_from_map()
-                with T.stage("track_fused_vi"):
-                    res = self._track_fused_vi(frame, img, img_right)
-                if res is not None:
-                    ran = True
-                    self._settle_fused(frame, res)
+                ran = self._run_fused_vi(frame, img, img_right)
         if not ran:
             if frame.feats is None:
                 with T.stage("extract"):
@@ -422,31 +409,101 @@ class Tracker:
                             img, depth, self.cfg.depth_map_factor)
                     else:
                         frame.feats = self.frontend.process(img)
+            if self._force_new_map and isinstance(self.local_mapper, AsyncMapper):
+                # the mapping thread maps the old map's queued keyframes
+                # before the store's IMU flags turn to the new map's (the
+                # reference keeps them on each map)
+                self.local_mapper.flush(raise_errors=False)
             # extraction ran lock-free; the state machine holds the map lock
             # (ref: Track() under Map::mMutexMapUpdate, Tracking.cc:921)
             with self.map.lock:
-                if self._force_new_map and self.state not in (
-                        State.NO_IMAGES_YET, State.NOT_INITIALIZED):
-                    # dataset boundary / sensor gap: open a fresh Atlas map
-                    self._force_new_map = False
-                    self.map.create_new_map()
-                    self._reset_tracker_state()
-                if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
-                    with T.stage("initialize"):
-                        if self.sensor == "mono":
-                            self._initialize_mono(frame)
-                        else:
-                            self._initialize_stereo(frame)
-                else:
-                    self._sync_imu_from_map()
-                    with T.stage("track"):
-                        self._track_frame(frame)
+                # the mapping thread may have initialized the IMU since the
+                # check above: decide again under the lock, as the
+                # reference's Track() does
+                if not vi_fused_ok and self._vi_fused_ok(depth):
+                    ran = self._run_fused_vi(frame, img, img_right)
+                if not ran:
+                    self._track_host(frame)
         # trajectory log: pose RELATIVE to the reference KF, so later map
         # updates apply to logged frames too (ref: Tracking.cc:1327-1347)
         if frame.R is not None and self.ref_kf >= 0:
-            self._log_pose(frame)
+            with self.map.lock:
+                self._reanchor(frame)
+                self._log_pose(frame)
         self.last_frame = frame
         return frame
+
+    def _vi_fused_ok(self, depth) -> bool:
+        """Whether this frame can take the visual-inertial fused step."""
+        last = self.last_frame
+        return (self.fused_enabled and self.state == State.OK and not self._force_new_map
+                and self.use_imu and self.map.imu_initialized and self.camera2 is None
+                and depth is None and self.camspec.kind == "pinhole" and last is not None
+                and last.mp is not None and last.R is not None)
+
+    def _run_fused_vi(self, frame: Frame, img, img_right) -> bool:
+        """The visual-inertial fused step after the async handshake; False
+        when it cannot run. Caller holds the map lock."""
+        self._anchor(frame)
+        self._sync_imu_from_map()
+        with T.stage("track_fused_vi"):
+            res = self._track_fused_vi(frame, img, img_right)
+        if res is None:
+            return False
+        self._settle_fused(frame, res)
+        return True
+
+    def _track_host(self, frame: Frame):
+        """The host state machine on the frame's extracted features: a new
+        Atlas map where one is due, then initialization or tracking. Caller
+        holds the map lock."""
+        if self._force_new_map and self.state not in (State.NO_IMAGES_YET,
+                                                      State.NOT_INITIALIZED):
+            # dataset boundary / sensor gap: open a fresh Atlas map
+            self._force_new_map = False
+            self.map.create_new_map()
+            self._reset_tracker_state()
+        self._anchor(frame)
+        if self.state in (State.NO_IMAGES_YET, State.NOT_INITIALIZED):
+            with T.stage("initialize"):
+                if self.sensor == "mono":
+                    self._initialize_mono(frame)
+                else:
+                    self._initialize_stereo(frame)
+        else:
+            self._sync_imu_from_map()
+            with T.stage("track"):
+                self._track_frame(frame)
+
+    def _anchor(self, frame: Frame, kf: int | None = None):
+        """Keep the pose of keyframe kf (the reference KF by default) on the
+        frame whose pose is being computed against the map. Caller holds the
+        map lock."""
+        kf = self.ref_kf if kf is None else kf
+        m = self.map
+        frame.anchor = None if kf < 0 else (kf, m.kf_R[kf].copy(), m.kf_t[kf].copy())
+
+    def _reanchor(self, frame: Frame):
+        """A frame whose pose was computed against the map before its anchor
+        keyframe moved (a merge or loop correction, a BA on the mapping
+        thread, while the frame was in flight or between its tracking and
+        its log) moves with that keyframe, as the reference's frames ride
+        their reference keyframe (Tracking::UpdateLastFrame, with Track()
+        under the map lock, Tracking.cc:921). Caller holds the map lock."""
+        m = self.map
+        if frame.anchor is None or frame.R is None:
+            return
+        kf, Ra, ta = frame.anchor
+        if not m.kf_valid[kf] or (np.array_equal(m.kf_R[kf], Ra)
+                                  and np.array_equal(m.kf_t[kf], ta)):
+            return
+        Rk, tk = m.kf_R[kf], m.kf_t[kf]
+        Rcr = frame.R @ Ra.T
+        tcr = frame.t - Rcr @ ta
+        frame.R, frame.t = Rcr @ Rk, Rcr @ tk + tcr
+        if frame.v is not None:
+            frame.v = Rk.T @ Ra @ frame.v
+        frame.anchor = (kf, Rk.copy(), tk.copy())
 
     def _settle_fused(self, frame: Frame, res: bool):
         """After a fused step: the OK bookkeeping, or (too few inliers) the
@@ -731,7 +788,10 @@ class Tracker:
 
     def _finish_completed(self, frame: Frame, n_inl: int, min_req: int):
         """Bookkeeping for a pipeline-completed frame: state machine, KF
-        decision, trajectory log (what the synchronous path does inline)."""
+        decision, trajectory log (what the synchronous path does inline).
+        The frame was dispatched against the map as it was then: a
+        correction since moves it first."""
+        self._reanchor(frame)
         if n_inl >= min_req:
             self._post_track_ok(frame)
         else:
@@ -754,6 +814,7 @@ class Tracker:
         with self.map.lock:
             ok_map = ft.build_local_map(vote_frame.mp)
             if ok_map:
+                self._anchor(frame)
                 min_req = self._min_req()
                 if self._pending is not None:
                     pose_in = self._pending[1]["pose"]
@@ -1301,6 +1362,7 @@ class Tracker:
                 # poses may have moved during local BA: refresh the frame
                 frame.R = m.kf_R[kf].copy()
                 frame.t = m.kf_t[kf].copy()
+                self._anchor(frame, kf)
                 if self.use_imu:
                     self._refresh_inertial_state(kf, frame)
         return kf
