@@ -8,7 +8,8 @@ mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
 distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
 stereo-inertial and mono-inertial routes, the inertial mapper's whole
 IMU schedule, the multi-session stereo-inertial merge, and the mapper on
-its own thread for stereo-inertial SLAM and across both merges.
+its own thread for stereo-inertial SLAM and across both merges, and the
+multi-session monocular merge.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -125,7 +126,21 @@ Phases, each raising on failure:
      merge's frame against run C's, the frames tracked, lost and
      relocalized after the correction (which runs on the mapping thread),
      each session's median and p90 frame ms and the longest frame wall are
-     printed.
+     printed. Run E, in a process of its own beside runs C-D and phase 10
+     (chip_smoke.phase_cli_e): run C's trees as two MONOCULAR sessions
+     (`--sensor mono --path A,B --vocab <.txt>`, the multi-session line of
+     scripts/euroc_examples_torch.sh), each map at the scale of its own
+     two-view init, the merge a Sim3 with a free scale: OK, one map,
+     exactly one merge inside the second session, every frame from it on
+     OK (none lost or relocalized), nothing left in the young map, a joint
+     scaled ATE under 0.10 and the two sessions' Horn scales (each aligned
+     alone) within 5 % of each other, 1 patch gather per frame and 4 pose
+     LMs per fused frame; the merge's frame, keyframe pair, Sim3 scale and
+     loop.correct ms are printed, and on the first fused frame after the
+     merge both kernels are held against their plain versions (the gather
+     bitwise, the 4 pose-LM calls with phase 2's tolerances) and timed. Its
+     control, the same command without a vocabulary: 2 maps, OK, the
+     sessions' Horn scales more than 5 % apart.
      The PNG decode time per image is printed apart from the track time.
  10. distribution (tpuslam_torch/parallel/dist_ba.py; bench_dist_torch.py's
      problem: K = 30 poses, P = 3000 points, O = 15,360 observations, f32):
@@ -276,8 +291,9 @@ fisheye_mono_vi with their frame-0 patch gathers in fisheye_shapes, phase
 as vi_merge_a and vi_merge_b with the kernel inputs of their first fused VI
 frame after the merge in vi_merge_shapes; phase 12 (b) as stereo_vi_async
 with its first fused VI frame's kernel inputs as stereo_vi_async_shapes,
-phase 9's run D as cli_d, phase 16 (b) async as vi_merge_b_async), the
-nvidia-smi line
+phase 9's run D as cli_d, phase 16 (b) async as vi_merge_b_async, phase
+9's run E as cli_e with the kernel inputs of its first fused frame after the
+merge as cli_e_shapes), the nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -332,6 +348,9 @@ N_CLI, CLI_FPS = 40, 20   # phase 9: the EuRoC tree written to disk
 # phase 9 run C: the second session, phase 4's frames 20..59, stamped from
 # 100 s (after all of the first session's, as EuRoC's MH02 follows MH01)
 CLI_B_START, CLI_B_T0 = 20, 100.0
+# phase 9 run E (the same trees, --sensor mono): tests/test_e2e_mono.py's scaled
+# ATE gate on this room, and how close the two sessions' Horn scales must come
+MONO_ATE_GATE, MONO_SCALE_AGREE = 0.10, 0.05
 N_DIST_RANKS = 4       # phase 10 (b, c): gloo ranks sharing the card
 DIST_TIMEOUT = 300.0   # phase 10: every group's collectives and every rank's run (s)
 N_CHAIN = 16           # phase 11 (b): frames of bench_frontend_torch's chain
@@ -1474,11 +1493,12 @@ def redecided_frames(rows, events, name):
     return out
 
 
-def fused_vi_lm_compare(calls, what, smi):
-    """The pose LM on the inputs a path's first fused VI frame gave it
-    (its 4 calls, (args, kwargs) each): every call held against the plain
-    version (pose_lm_compare), the last (4 rounds) timed as in phase 2
-    beside its bound. Returns the records by call, with max_abs_err."""
+def fused_vi_lm_compare(calls, what, smi, frame="fused VI frame"):
+    """The pose LM on the inputs a path's first fused VI frame (or the
+    `frame` named) gave it (its 4 calls, (args, kwargs) each): every call
+    held against the plain version (pose_lm_compare), the last (4 rounds)
+    timed as in phase 2 beside its bound. Returns the records by call, with
+    max_abs_err."""
     import torch
 
     from tpuslam_torch.solve import pose_opt_cuda
@@ -1496,7 +1516,7 @@ def fused_vi_lm_compare(calls, what, smi):
                                    steps=[r["steps"] for r in rounds],
                                    in_use=[(r["mono"], r["stereo"]) for r in rounds],
                                    flops=pose_lm_ops(rounds, valid_by))
-        log(f"[{what}] pose LM call {j} of the first fused VI frame (N={a[2].shape[0]}, "
+        log(f"[{what}] pose LM call {j} of the first {frame} (N={a[2].shape[0]}, "
             f"valid {valid_by}, {kw['n_rounds']} rounds): |dR| {eR:.3g} |dt| {et:.3g} inlier "
             f"agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
     a, kw = calls[-1]
@@ -1509,7 +1529,7 @@ def fused_vi_lm_compare(calls, what, smi):
     b_ms, b_by, b_res = bound(n_bytes, rec["flops"])
     rec.update(ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                bytes=n_bytes)
-    log(f"[{what}] pose LM on the first fused VI frame's last call: kernel device "
+    log(f"[{what}] pose LM on the first {frame}'s last call: kernel device "
         f"{dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
         f"{b_ms:.7f} ms ({rec['flops']} f32 operations, {n_bytes} bytes: {b_res}); the bound "
         f"is {b_ms / dev_ms:.5f} of the device time; card {smi}")
@@ -2685,6 +2705,9 @@ def phase_cli(dev, smi, images, images_b):
     script.write_euroc(script.SessionView(room, CLI_B_START, N_CLI, CLI_B_T0), str(tree_b),
                        n_features=N_FEATURES, images=images_b)
     gt = np.concatenate([datasets.load_euroc(str(t), stereo=True).gt for t in (tree, tree_b)])
+    # run E, the same trees as two monocular sessions, in a process of its own
+    cli_e = PhaseInChild("phase_cli_e", dev, smi, [str(tree), str(tree_b)], paths["txt"],
+                         yaml_path, str(root))
     out["c"] = str(root / "c_traj.txt")
     argv = ["--dataset", "euroc", "--path", f"{tree},{tree_b}", "--settings", yaml_path,
             "--sensor", "stereo", "--vocab", paths["txt"], "--output", out["c"]]
@@ -2724,10 +2747,15 @@ def phase_cli(dev, smi, images, images_b):
           f"cli C: {counts['cli_c']['patch_gather']} patch-gather launches, not 2 per frame")
     check(counts["cli_c"]["pose_lm"] > 0, "cli C: no pose-LM launch")
     log(f"[cli C] run C in {time.perf_counter() - t_c:.1f} s")
-    counts["cli_d"] = phase_cli_d(argv, out, gt, merges[0][0], smi)
+    try:
+        counts["cli_d"] = phase_cli_d(argv, out, gt, merges[0][0], smi)
+    finally:
+        counts["cli_e"], cli_e_shapes, figures = cli_e.result()
+    log(f"[cli E] against run C (stereo, the same trees): merge on frame "
+        f"{figures['merge_frame']} (run C: the keyframe of frame {merges[0][0]}), {figures}")
     shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase 9 in {time.perf_counter() - t_phase:.1f} s")
-    return counts
+    return counts, cli_e_shapes
 
 
 def phase_cli_d(argv_c, out, gt, merge_c, smi):
@@ -2798,6 +2826,214 @@ def phase_cli_d(argv_c, out, gt, merge_c, smi):
     check(counts["pose_lm"] > 0, "cli D: no pose-LM launch")
     log(f"[cli D] run D in {time.perf_counter() - t_d:.1f} s")
     return counts
+
+
+class mono_merge_probe:
+    """Run E's instruments: per-frame rows of run.main's System (state, map
+    count, patch-gather and pose-LM launches, whether the frame took the
+    fused step, host wall ms), the merges its loop closer corrects (frame,
+    keyframe pair, Sim3 scale, the correction's ms) and the kernel inputs of
+    the first fused frame after the merge (its patch gather and its 4
+    pose-LM calls)."""
+
+    def __enter__(self):
+        import torch
+
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import loop_closing, track_device
+        from tpuslam_torch.ops import orb
+        from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+        self.rows, self.merges, self.captured, self.systems = [], [], [], []
+        probe, frame_gathers, frame_lm = self, [], []
+        LC = loop_closing.LoopCloser
+        self.saved = dict(gather=orb.extract_patches_levels, lm=track_device.pose_optimize_fused,
+                          System=run.System, correct=LC._correct_loop)
+        sv = self.saved
+
+        def pending():
+            return len(probe.captured) < len(probe.merges)
+
+        def gather(levels, yx, budgets, size):
+            if pending():
+                frame_gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets),
+                                      size))
+            return sv["gather"](levels, yx, budgets, size)
+
+        def lm(*a, **kw):
+            if pending():
+                frame_lm.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
+            return sv["lm"](*a, **kw)
+
+        def stages():
+            return [len(GLOBAL_TIMER.samples.get(n, [])) for n in ("track_fused", "track")]
+
+        class Probed(sv["System"]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                probe.systems.append(self)
+
+            def track_monocular(self, *a, **kw):
+                before, st = counts_now(), stages()
+                frame_gathers.clear()
+                frame_lm.clear()
+                t0 = time.perf_counter()
+                out = super().track_monocular(*a, **kw)
+                wall = (time.perf_counter() - t0) * 1e3
+                after, st2 = counts_now(), stages()
+                row = dict(state=self.get_tracking_state().name, maps=len(self.map.map_ids()),
+                           patch=after["patch_gather"] - before["patch_gather"],
+                           pose=after["pose_lm"] - before["pose_lm"],
+                           fused=st2[0] > st[0], host=st2[1] > st[1], ms=wall)
+                probe.rows.append(row)
+                if (pending() and row["fused"] and not row["host"] and len(frame_lm) == 4
+                        and len(frame_gathers) == 1):
+                    probe.captured.append((list(frame_gathers), list(frame_lm),
+                                           len(probe.rows) - 1))
+                return out
+
+        def correct(closer, kf, cand, s, *a, merge=False, **kw):
+            t0 = time.perf_counter()
+            out = sv["correct"](closer, kf, cand, s, *a, merge=merge, **kw)
+            if merge:
+                probe.merges.append(dict(frame=len(probe.rows), kf=int(kf), cand=int(cand),
+                                         s=float(s), ms=(time.perf_counter() - t0) * 1e3))
+            return out
+
+        orb.extract_patches_levels, track_device.pose_optimize_fused = gather, lm
+        run.System = Probed
+        LC._correct_loop = correct
+        return self
+
+    def __exit__(self, *exc):
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import loop_closing, track_device
+        from tpuslam_torch.ops import orb
+
+        sv = self.saved
+        orb.extract_patches_levels, track_device.pose_optimize_fused = sv["gather"], sv["lm"]
+        run.System = sv["System"]
+        loop_closing.LoopCloser._correct_loop = sv["correct"]
+
+
+def mono_session_gates(traj, gt, t0_b):
+    """One Sim3 alignment of both sessions' rows to both trees' ground truth
+    (the joint scaled ATE) and each session's Horn scale aligned alone."""
+    from tpuslam_torch.eval.ate import associate, horn_align
+
+    i_e, i_g = associate(traj[:, 0], gt[:, 0])
+    est, ref = traj[i_e, 1:4], gt[i_g, 1:4]
+    res = horn_align(est, ref, with_scale=True)[3]
+    second = traj[i_e, 0] >= t0_b
+    return dict(rows=len(traj), matched=len(i_e), ate=float(np.sqrt((res ** 2).mean())),
+                scales=[float(horn_align(est[sel], ref[sel], with_scale=True)[2])
+                        for sel in (~second, second)],
+                per_session=[int((~second).sum()), int(second.sum())])
+
+
+def phase_cli_e(dev, smi, trees, voc, yaml_path, root):
+    """Phase 9 run E: two monocular sessions over one place merged into one
+    Atlas map (EuRoC's multi-session MH01 -> MH02 run with --sensor mono,
+    as scripts/euroc_examples_torch.sh runs MH01 -> MH05): run C's two trees
+    through `run.main --sensor mono --path A,B --vocab <.txt>`, each mono
+    map at the scale of its own two-view init, the merge a Sim3 with a free
+    scale. Gates: one merge, inside the second session (maps 2 -> 1), OK at
+    the end, every frame from the merge on OK (none lost or relocalized), a
+    joint scaled ATE of both sessions' rows under tests/test_e2e_mono.py's
+    0.10, and the two sessions' Horn scales, each aligned alone, within 5 %
+    of each other; 1 patch gather per frame, 4 pose LMs per fused frame.
+    On the first fused frame after the merge both kernels are held against
+    their plain versions (the gather bitwise, the 4 pose-LM calls with
+    phase 2's tolerances) and timed. The control: the same command without
+    a vocabulary ends with 2 maps, its sessions' Horn scales further apart
+    than the 5 %. Runs in a process of its own beside runs C-D and phase 10.
+    Returns the launch counts, the kernel records and the run's figures."""
+    import torch
+
+    from tpuslam_torch import run
+    from tpuslam_torch.io import datasets
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    torch.set_num_threads(2)
+    t_e = time.perf_counter()
+    gt = np.concatenate([datasets.load_euroc(t, stereo=False).gt for t in trees])
+    out = {k: os.path.join(root, f"e_{k}.txt") for k in ("traj", "control")}
+    argv = ["--dataset", "euroc", "--path", ",".join(trees), "--settings", yaml_path,
+            "--sensor", "mono", "--vocab", voc, "--output", out["traj"], "--device", str(dev)]
+    with mono_merge_probe() as probe:
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = counts_now()
+    slam, rows, merges = probe.systems[0], probe.rows, probe.merges
+    m, tr = slam.map, slam.tracker
+    traj = np.loadtxt(out["traj"], ndmin=2)
+    gates = mono_session_gates(traj, gt, CLI_B_T0)
+    log(f"[cli E] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[cli E] report {json.dumps(rep)}; run.main wall {wall:.1f} s; launches {counts}; "
+        f"card {smi}")
+    log(f"[cli E] merges (frame over both sessions, current KF, candidate KF, Sim3 scale = the "
+        f"second map's units per first map unit, loop.correct ms): "
+        f"{[(x['frame'], x['kf'], x['cand'], round(x['s'], 6), round(x['ms'], 1)) for x in merges]}"
+        f"; the merge on session B's frame "
+        f"{merges[0]['frame'] - N_CLI if merges else None}")
+    stage_table("cli E", GLOBAL_TIMER)
+    n = merges[0]["frame"] if merges else len(rows)
+    after = [r["state"] for r in rows[n:]]
+    lost = sum(1 for st in after if st != "OK")
+    reloc = sum(1 for a, b in zip(after, after[1:]) if a != "OK" and b == "OK")
+    log(f"[cli E] frames from the merge on: {len(after)}, {after.count('OK')} OK, {lost} not OK, "
+        f"{reloc} relocalized; joint gates {gates}")
+    for name, ms in (("A", [r["ms"] for r in rows[:N_CLI]]), ("B", [r["ms"] for r in rows[N_CLI:]])):
+        log(f"[cli E] session {name}: {len(ms)} frames, median {np.median(ms):.2f} ms, p90 "
+            f"{np.percentile(ms, 90):.2f} ms, max {max(ms):.1f} ms (host wall of "
+            f"track_monocular)")
+    check(rep["state"] == "OK" and rep["maps"] == 1 and rep["frames"] == 2 * N_CLI,
+          f"cli E: report {rep}")
+    check(len(merges) == 1 and merges[0]["frame"] >= N_CLI and slam.loop_closer.n_loops_closed == 1,
+          f"cli E: merges {merges}, loops closed {slam.loop_closer.n_loops_closed}")
+    check(max(r["maps"] for r in rows) == 2 and rows[-1]["maps"] == 1,
+          f"cli E: map counts {sorted(set(r['maps'] for r in rows))}")
+    check(lost == 0, f"cli E: {lost} frames after the merge not OK")
+    pts = np.nonzero(m.mp_valid[: m.n_mp])[0]
+    check(m.map_ids() == [0] and m.current_map_id == 0
+          and all(m.kf_map_id[k] == 0 for p in pts for k in m.mp_obs[int(p)])
+          and all(m.kf_valid[k] and m.kf_map_id[k] == 0 for k in (tr.ref_kf, tr.last_kf)),
+          "cli E: something is left in the young map")
+    check(gates["matched"] == gates["rows"] and min(gates["per_session"]) >= 10
+          and gates["ate"] < MONO_ATE_GATE
+          and abs(gates["scales"][1] / gates["scales"][0] - 1.0) < MONO_SCALE_AGREE,
+          f"cli E: joint gates {gates}")
+    check(all(r["patch"] == 1 for r in rows), f"cli E: patch gathers per frame "
+          f"{sorted(set(r['patch'] for r in rows))} != 1")
+    fused = [r for r in rows if r["fused"] and not r["host"]]
+    check(fused and all(r["pose"] == 4 for r in fused),
+          "cli E: a fused frame did not make 4 pose-LM launches")
+    check(len(probe.captured) == 1, "cli E: no fused frame after the merge")
+    gathers, calls, at = probe.captured[0]
+    shapes = {"patch_gather": patch_compare(*gathers[0], f"cli E frame {at}"),
+              "pose_lm": fused_vi_lm_compare(calls, "cli E", smi, "fused frame after the merge"),
+              "frame": at}
+    figures = dict(merge_frame=merges[0]["frame"], kfs=(merges[0]["kf"], merges[0]["cand"]),
+                   sim3_scale=merges[0]["s"], correct_ms=merges[0]["ms"], after_ok=after.count("OK"),
+                   after=len(after), ate=gates["ate"], scales=gates["scales"], wall=wall)
+    # the control: no vocabulary, no merge, each map at its own scale
+    argv = [a for a in argv if a != voc and a != "--vocab"]
+    argv[argv.index("--output") + 1] = out["control"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rep_c = run.main(argv)
+    gates_c = mono_session_gates(np.loadtxt(out["control"], ndmin=2), gt, CLI_B_T0)
+    log(f"[cli E] control without a vocabulary: report {json.dumps(rep_c)}; joint gates {gates_c}")
+    check(rep_c["maps"] == 2 and rep_c["state"] == "OK", f"cli E control: report {rep_c}")
+    check(abs(gates_c["scales"][1] / gates_c["scales"][0] - 1.0) > MONO_SCALE_AGREE,
+          f"cli E control: the sessions' scales {gates_c['scales']} agree without a merge")
+    figures["control_scales"] = gates_c["scales"]
+    log(f"[cli E] run E in {time.perf_counter() - t_e:.1f} s")
+    return counts, shapes, figures
 
 
 def last_json(out):
@@ -2977,7 +3213,8 @@ def main():
     # phase 15 runs in a process of its own beside phases 9 and 10
     vi_schedule = PhaseInChild("phase_vi_schedule", dev, smi)
     try:
-        by_path.update(phase_cli(dev, smi, cli_images, cli_b_images))
+        cli_counts, cli_e_shapes = phase_cli(dev, smi, cli_images, cli_b_images)
+        by_path.update(cli_counts)
         by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
     finally:
         by_path["vi_schedule"], vi_schedule_shapes = vi_schedule.result()
@@ -3016,12 +3253,14 @@ def main():
     patch["stereo_vi_async_shapes"] = {
         side: dict(r, frame=stereo_vi_async_shapes["frame"])
         for side, r in stereo_vi_async_shapes["patch_gather"].items()}
+    patch["cli_e_shapes"] = dict(cli_e_shapes["patch_gather"], frame=cli_e_shapes["frame"])
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
                                 patch["vi_schedule_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()]
                                + [r["max_abs_err"] for r in patch["vi_merge_shapes"].values()]
                                + [r["max_abs_err"]
-                                  for r in patch["stereo_vi_async_shapes"].values()])
+                                  for r in patch["stereo_vi_async_shapes"].values()]
+                               + [patch["cli_e_shapes"]["max_abs_err"]])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
     lm["stereo_vi_async_shapes"] = dict(stereo_vi_async_shapes["pose_lm"],
@@ -3029,9 +3268,11 @@ def main():
     lm["vi_schedule_shapes"] = vi_schedule_shapes["pose_lm"]
     lm["vi_merge_shapes"] = {b: dict(v["pose_lm"], frame=v["frame"])
                              for b, v in vi_merge_shapes.items()}
+    lm["cli_e_shapes"] = dict(cli_e_shapes["pose_lm"], frame=cli_e_shapes["frame"])
     lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
                              lm["vi_schedule_shapes"].pop("max_abs_err"),
-                             lm["stereo_vi_async_shapes"].pop("max_abs_err")]
+                             lm["stereo_vi_async_shapes"].pop("max_abs_err"),
+                             lm["cli_e_shapes"].pop("max_abs_err")]
                             + [v.pop("max_abs_err") for v in lm["vi_merge_shapes"].values()]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
@@ -3042,7 +3283,8 @@ def main():
                       "fisheye_stereo": N_FISH, "fisheye_stereo_vi": N_FISH_STEREO_VI,
                       "fisheye_mono_vi": N_FISH_MONO_VI, "vi_schedule": N_VI_SCHEDULE,
                       "cli": N_CLI,
-                      "cli_b": 2 * N_CLI, "cli_c": 2 * N_CLI, "level0_step": N_FRAMES - 1,
+                      "cli_b": 2 * N_CLI, "cli_c": 2 * N_CLI, "cli_e": 2 * N_CLI,
+                      "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS,
                       **{f"vi_merge_{b}": n[0] + n[2] for b, n in N_VI_MERGE.items()}}

@@ -30,8 +30,8 @@ in call n + 1 after it.
   * Gates for each package: one merge, inside B (maps 2 -> 1), OK at the
     end with nothing left in the young map, no worker errors.
 
-tpuslam's run takes a process of its own beside the port's
-(tests/torch_child.py). The route with real concurrency (`run.main
+tpuslam's run is read from its record (tests/torch_records.py, written by
+tests/make_tpuslam_records.py). The route with real concurrency (`run.main
 --async-mapping --pipelined`) is tests/test_torch_async_merge_cli.py.
 """
 
@@ -53,15 +53,14 @@ from tpuslam_torch.engine.config import LoopConfig, OrbConfig, SlamConfig, Track
 from tpuslam_torch.engine.system import Sensor, System
 from tpuslam_torch.engine.tracking import State
 from tpuslam_torch.eval.ate import horn_align
-from tpuslam_torch.io.synthetic import SyntheticSequence
 from tpuslam_torch.place import load_orbvoc
 from tpuslam_torch.solve import sim3 as t_sim3
 
-from test_torch_atlas_merge import (ATE_GATE, FPS, N_A, N_B, N_FEATURES, PACKAGES, POS_TOL,
-                                    ROT_TOL, START_B, T0_B, _drive, _joint_ate, _rot_deg)
+from test_torch_atlas_merge import (ATE_GATE, N_A, N_B, N_FEATURES, PACKAGES, POS_TOL, ROT_TOL,
+                                    _drive, _joint_ate, _rot_deg)
+from test_torch_atlas_merge import record_inputs
 from test_torch_atlas_merge import room  # noqa: F401  (the fixture)
-import torch_child
-from test_torch_cli import _script
+import torch_records
 from torch_async import serialized
 
 torch.set_num_threads(2)
@@ -83,15 +82,6 @@ def _async_system(package, seq, voc):
     return serialized(JSystem(JPinhole(cam, seq.width, seq.height), cfg,
                               sensor=JSensor.STEREO, bf=seq.fx * seq.baseline,
                               vocab=j_load_orbvoc(voc), async_mapping=True))
-
-
-def _room(voc):
-    """tests/test_torch_atlas_merge.py's room (its `room` fixture's sequence,
-    renders and sessions) around the vocabulary file voc."""
-    seq = SyntheticSequence(seed=0, n_frames=START_B + N_B, fps=FPS, speed=0.5, baseline=0.1)
-    frames = [(seq.frame(i), seq.frame(i, right=True)) for i in range(seq.n_frames)]
-    view = _script().SessionView
-    return seq, frames, [view(seq, 0, N_A, 0.0), view(seq, START_B, N_B, T0_B)], voc
 
 
 def _run(package, room):
@@ -127,15 +117,11 @@ def _run(package, room):
                                         for k in (tr.ref_kf, tr.last_kf))))
 
 
-def _run_in_room(package, voc):
-    return _run(package, _room(voc))
-
-
 @pytest.fixture(scope="module")
 def lockstep(room):
-    """Both packages' serialized async runs, tpuslam's in a process of its
-    own (tests/torch_child.py)."""
-    jax_side = torch_child.start(_run_in_room, "tpuslam", room[3])
+    """Both packages' serialized async runs, tpuslam's from its record
+    (tests/torch_records.py)."""
+    jax_side = torch_records.recorded("async_merge", record_inputs(room))
     port = _run("port", room)
     return {"port": port, "tpuslam": jax_side.result()}
 

@@ -45,8 +45,8 @@ busy with A's last keyframes.
     The port's tracker lets the worker finish the old map's queue before it
     opens the new map: the local inertial BA.
 
-tpuslam's run takes a process of its own beside the port's
-(tests/torch_child.py), and the two are compared afterwards. The route with
+tpuslam's run is read from its record (tests/torch_records.py, written by
+tests/make_tpuslam_records.py) and the two are compared afterwards. The route with
 real concurrency is tests/test_torch_async_stereo_inertial_e2e.py.
 """
 
@@ -68,7 +68,7 @@ from tpuslam_torch.eval.ate import horn_align
 from tpuslam_torch.imu.preintegration import ImuCalib
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg
-import torch_child
+import torch_records
 from torch_async import LAG, count_rebases, lagged
 from torch_vi_heave import heave_sequence
 
@@ -147,10 +147,17 @@ def _run(package):
                 alive=slam.async_mapper.worker.is_alive())
 
 
+def _record_inputs():
+    """Fingerprints of the inputs of tpuslam's recorded run (tests/torch_records.py)."""
+    return {"frames": torch_records.sequence_fingerprint(
+        heave_sequence(n_frames=N_MAX, fps=10, speed=0.5, imu_rate=200.0, baseline=0.1), N_MAX,
+        right=True)}
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """Both packages' runs, tpuslam's in a process of its own."""
-    jax_side = torch_child.start(_run, "tpuslam")
+    """Both packages' runs, tpuslam's from its record (tests/torch_records.py)."""
+    jax_side = torch_records.recorded("async_stereo_inertial", _record_inputs())
     port = _run("port")
     return {"port": port, "tpuslam": jax_side.result()}
 

@@ -13,6 +13,7 @@ same route serialized and held against tpuslam is
 tests/test_torch_async_stereo_inertial.py.
 """
 
+import pytest
 import torch
 
 from tpuslam_torch.cameras import Pinhole
@@ -27,7 +28,10 @@ from torch_vi_heave import heave_sequence
 torch.set_num_threads(2)
 
 
-def test_port_async_stereo_inertial_state_after_flush():
+@pytest.fixture(scope="module")
+def run():
+    """The port's async run, flushed and shut down, with its handshake
+    rebases."""
     seq = heave_sequence(n_frames=40, fps=10, speed=0.5, imu_rate=200.0, baseline=0.1)
     slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height),
                   SlamConfig(orb=OrbConfig(n_features=600),
@@ -42,8 +46,20 @@ def test_port_async_stereo_inertial_state_after_flush():
                           imu=_imu(seq, times, i))
     slam.async_mapper.flush()          # raises a worker error
     slam.shutdown()
+    return slam, rebases
+
+
+def test_port_async_stereo_inertial_state_after_flush(run):
+    slam, _ = run
     assert slam.async_mapper.errors == [] and not slam.async_mapper.worker.is_alive()
+    assert slam.get_tracking_state().name == "OK"
+
+
+def test_the_imu_initializes_on_the_mapping_thread(run):
+    slam, _ = run
     assert slam.map.imu_initialized
     assert slam.local_mapper.debug_events[0]["event"] == "imu_init"
-    assert rebases[0] >= 1
-    assert slam.get_tracking_state().name == "OK"
+
+
+def test_the_handshake_rebased_the_last_frame(run):
+    assert run[1][0] >= 1

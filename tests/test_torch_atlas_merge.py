@@ -32,7 +32,16 @@ written in the reference's text format and loaded by both packages.
     written trees (the port on `--device cpu`, the default background
     GBA): one map, OK, the summed frame count, joint ATE from the
     trajectory file under 5 cm.
+
+tpuslam's three runs (the lockstep run, the control and run.main) are read
+from their record (tests/torch_records.py, written by
+tests/make_tpuslam_records.py, which checks the frames' and the vocabulary's
+fingerprints); the two packages' Systems never read each other, so they are
+compared afterwards.
 """
+
+import os
+import tempfile
 
 import jax
 import numpy as np
@@ -59,6 +68,7 @@ from tpuslam_torch.io.synthetic import SyntheticSequence
 from tpuslam_torch.place import load_orbvoc, save_orbvoc_text, train_vocabulary
 from tpuslam_torch.solve import sim3 as t_sim3
 
+import torch_records
 from test_torch_cli import _script
 
 torch.set_num_threads(2)
@@ -73,10 +83,9 @@ def _rot_deg(Ra, Rb):
     return float(np.degrees(np.arccos(np.clip((np.trace(Ra @ Rb.T) - 1.0) / 2.0, -1.0, 1.0))))
 
 
-@pytest.fixture(scope="module")
-def room(tmp_path_factory):
+def _make_room(voc):
     """The sequence, its rendered frames, sessions A and B (views of it) and
-    the vocabulary's text file."""
+    the vocabulary's text file, written to voc."""
     seq = SyntheticSequence(seed=0, n_frames=START_B + N_B, fps=FPS, speed=0.5, baseline=0.1)
     frames = [(seq.frame(i), seq.frame(i, right=True)) for i in range(seq.n_frames)]
     view = _script().SessionView
@@ -84,10 +93,22 @@ def room(tmp_path_factory):
     cam = Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height)
     fe = Frontend(cam, OrbConfig(n_features=N_FEATURES), device="cpu")
     bits = [f.bits[f.valid] for f in (fe.process(frames[i][0]) for i in (0, 4, 8, 12))]
-    voc = str(tmp_path_factory.mktemp("voc") / "voc.txt")
     save_orbvoc_text(train_vocabulary(np.concatenate(bits), k=8, L=3, iters=5, device="cpu"),
                      voc)
     return seq, frames, sessions, voc
+
+
+@pytest.fixture(scope="module")
+def room(tmp_path_factory):
+    return _make_room(str(tmp_path_factory.mktemp("voc") / "voc.txt"))
+
+
+def record_inputs(room):
+    """Fingerprints of the inputs of tpuslam's recorded runs of this room
+    (tests/torch_records.py): the frames and the vocabulary."""
+    seq, _, _, voc = room
+    return {"frames": torch_records.sequence_fingerprint(seq, seq.n_frames, right=True),
+            "vocabulary": torch_records.text_digest(voc)}
 
 
 def _system(package, seq, voc):
@@ -165,12 +186,70 @@ def _expected_tcw(sessions, s_origin, s, t):
     return R @ R0.T, tt - R @ R0.T @ t0
 
 
+def _summary(slam, rows, merges):
+    """What the tests read of a System after its run (picklable)."""
+    m, tr = slam.map, slam.tracker
+    kfs = m.valid_kf_ids(all_maps=True)
+    pts = np.nonzero(m.mp_valid[: m.n_mp])[0]
+    return dict(rows=rows, merges=merges, kfs=kfs, kf_map_id=m.kf_map_id[kfs],
+                centers=np.array([m.kf_center(k) for k in kfs]), kf_R=m.kf_R[kfs],
+                n_points=len(pts), state=slam.get_tracking_state().name,
+                loop_edges=[tuple(e[:2]) for e in slam.loop_closer.loop_edges]
+                if slam.loop_closer is not None else [],
+                map_ids=m.map_ids(), current_map=m.current_map_id,
+                maps_created=m.n_maps_created, traj=slam.trajectory_tum(),
+                young_left=not (all(m.kf_map_id[k] == 0 for p in pts for k in m.mp_obs[int(p)])
+                                and all(m.kf_valid[k] and m.kf_map_id[k] == 0
+                                        for k in (tr.ref_kf, tr.last_kf))))
+
+
+def _control(package, room):
+    seq = room[0]
+    slam = _system(package, seq, None)
+    rows, _ = _drive([slam], room)
+    return dict(map_ids=[r[4] for r in rows[0]][-1], state=slam.get_tracking_state().name,
+                traj=slam.trajectory_tum())
+
+
+def _run_main(package, room, out_dir):
+    """run.main --path A,B --vocab of one package on the two sessions written
+    as EuRoC trees under out_dir: its report and trajectory rows."""
+    seq, frames, sessions, voc = room
+    script = _script()
+    paths = []
+    for name, sess in zip(("MH01", "MH02"), sessions):
+        images = [tuple(np.clip(x, 0, 255).astype(np.uint8) for x in frames[sess.start + i])
+                  for i in range(sess.n_frames)]
+        yaml_path = script.write_euroc(sess, os.path.join(out_dir, name),
+                                       n_features=N_FEATURES, images=images)
+        paths.append(os.path.join(out_dir, name))
+    out = os.path.join(out_dir, f"traj_{package}.txt")
+    argv = ["--dataset", "euroc", "--path", ",".join(paths), "--settings", yaml_path,
+            "--sensor", "stereo", "--vocab", voc, "--output", out]
+    rep = (run.main(argv + ["--device", "cpu"]) if package == "port" else j_run.main(argv))
+    return rep, np.loadtxt(out, ndmin=2)
+
+
+def _tpuslam_side(room):
+    """tpuslam's three runs of this file (its record's runs,
+    tests/torch_records.py): the lockstep run, the control without a
+    vocabulary and run.main on the written trees."""
+    slam = _system("tpuslam", room[0], room[3])
+    (rows,), (merges,) = _drive([slam], room)
+    with tempfile.TemporaryDirectory() as out_dir:
+        return dict(lockstep=_summary(slam, rows, merges), control=_control("tpuslam", room),
+                    run_main=_run_main("tpuslam", room, out_dir))
+
+
 @pytest.fixture(scope="module")
 def lockstep(room):
-    """Both Systems driven in lockstep with the vocabulary; the port's Sim3
-    RANSAC takes tpuslam's samples (its LoopCloser's PRNGKey(7), split once
-    per try)."""
+    """Both packages' runs with the vocabulary, tpuslam's (with its control
+    and run.main) from its record (tests/torch_records.py), compared
+    afterwards (neither System reads the other); the port's Sim3 RANSAC
+    takes tpuslam's samples (its LoopCloser's PRNGKey(7), split once per
+    try)."""
     seq, _, _, voc = room
+    jax_side = torch_records.recorded("atlas_merge", record_inputs(room))
     key = [jax.random.PRNGKey(7)]
 
     def draw(n_valid, n_hyp, generator=None):
@@ -178,15 +257,17 @@ def lockstep(room):
         return torch.as_tensor(np.asarray(
             jax.random.randint(sub, (n_hyp, 3), 0, max(int(n_valid), 1))))
 
-    systems = [_system(p, seq, voc) for p in PACKAGES]
+    slam = _system("port", seq, voc)
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(t_sim3, "draw_samples", draw)
-        rows, merges = _drive(systems, room)
-    return dict(zip(PACKAGES, systems)), dict(zip(PACKAGES, rows)), dict(zip(PACKAGES, merges))
+        (rows,), (merges,) = _drive([slam], room)
+    tpuslam = jax_side.result()
+    return dict(port=_summary(slam, rows, merges), tpuslam=tpuslam["lockstep"],
+                tpuslam_control=tpuslam["control"], tpuslam_run_main=tpuslam["run_main"])
 
 
 def test_sessions_track_in_lockstep(lockstep):
-    _, rows, _ = lockstep
+    rows = {p: lockstep[p]["rows"] for p in PACKAGES}
     assert len(rows["port"]) == len(rows["tpuslam"]) == N_A + N_B
     for a, b in zip(rows["port"], rows["tpuslam"]):
         where = a[:2]
@@ -198,81 +279,64 @@ def test_sessions_track_in_lockstep(lockstep):
 
 
 def test_the_same_merge_and_merged_map(lockstep):
-    systems, _, merges = lockstep
-    assert merges["port"] == merges["tpuslam"] and len(merges["port"]) == 1, merges
-    (n, kf, cand), = merges["port"]
+    t, j = lockstep["port"], lockstep["tpuslam"]
+    assert t["merges"] == j["merges"] and len(t["merges"]) == 1, (t["merges"], j["merges"])
+    (n, kf, cand), = t["merges"]
     assert n >= N_A, "the merge fires inside session B"
-    m, jm = systems["port"].map, systems["tpuslam"].map
-    assert m.kf_map_id[kf] == m.kf_map_id[cand] == 0
-    kfs = m.valid_kf_ids(all_maps=True)
-    assert np.array_equal(kfs, jm.valid_kf_ids(all_maps=True))
-    assert np.array_equal(m.kf_map_id[kfs], jm.kf_map_id[kfs])
-    for k in kfs:
-        assert np.linalg.norm(m.kf_center(k) - jm.kf_center(k)) < POS_TOL, k
-        assert _rot_deg(m.kf_R[k], jm.kf_R[k]) < ROT_TOL, k
-    n_pts, j_pts = int(m.mp_valid[: m.n_mp].sum()), int(jm.mp_valid[: jm.n_mp].sum())
-    assert abs(n_pts - j_pts) <= 0.05 * j_pts, (n_pts, j_pts)
-    lc, jlc = systems["port"].loop_closer, systems["tpuslam"].loop_closer
-    assert [e[:2] for e in lc.loop_edges] == [e[:2] for e in jlc.loop_edges] == [(cand, kf)]
+    kfs = list(t["kfs"])
+    assert t["kf_map_id"][kfs.index(kf)] == t["kf_map_id"][kfs.index(cand)] == 0
+    assert np.array_equal(t["kfs"], j["kfs"])
+    assert np.array_equal(t["kf_map_id"], j["kf_map_id"])
+    for k, ct, cj, Rt, Rj in zip(kfs, t["centers"], j["centers"], t["kf_R"], j["kf_R"]):
+        assert np.linalg.norm(ct - cj) < POS_TOL, k
+        assert _rot_deg(Rt, Rj) < ROT_TOL, k
+    assert abs(t["n_points"] - j["n_points"]) <= 0.05 * j["n_points"], (t["n_points"],
+                                                                         j["n_points"])
+    assert t["loop_edges"] == j["loop_edges"] == [(cand, kf)]
 
 
 @pytest.mark.parametrize("package", PACKAGES)
 def test_one_merge_and_the_joint_gates(lockstep, room, package):
-    systems, rows, merges = lockstep
     sessions = room[2]
-    slam, out = systems[package], rows[package]
+    run_ = lockstep[package]
+    out = run_["rows"]
     maps = [r[4] for r in out]
     assert all(mp == [0] for mp in maps[:N_A])
-    (n, _, _), = merges[package]
+    (n, _, _), = run_["merges"]
     # the second session opens map 1 and is merged into map 0 on frame n
     assert all(mp == [0, 1] for mp in maps[N_A:n]) and n > N_A
     assert all(mp == [0] for mp in maps[n:])
     assert [r[5] for r in out] == [0] * n + [1] * (N_A + N_B - n)
-    assert slam.get_tracking_state().name == State.OK.name
+    assert run_["state"] == State.OK.name
     # nothing is left in the young map: keyframes, the points' keyframes,
     # the tracker's keyframes, the current map
-    m, tr = slam.map, slam.tracker
-    assert m.map_ids() == [0] and m.current_map_id == 0 and m.n_maps_created == 2
-    pts = np.nonzero(m.mp_valid[: m.n_mp])[0]
-    assert all(m.kf_map_id[k] == 0 for p in pts for k in m.mp_obs[int(p)])
-    assert all(m.kf_valid[k] and m.kf_map_id[k] == 0 for k in (tr.ref_kf, tr.last_kf))
+    assert run_["map_ids"] == [0] and run_["current_map"] == 0 and run_["maps_created"] == 2
+    assert not run_["young_left"]
     # B's frames are in B's own frame before the merge and in A's after it
     for k, (s, i, t, Tcw, _, _) in enumerate(out):
         origin = 0 if (s == 0 or k >= n) else 1
         R, tt = _expected_tcw(sessions, origin, s, t)
         c_est = -Tcw[:3, :3].T @ Tcw[:3, 3]
         assert np.linalg.norm(c_est - (-R.T @ tt)) < ATE_GATE, (s, i, origin)
-    traj = slam.trajectory_tum()
+    traj = run_["traj"]
     assert len(traj) == N_A + N_B
     assert _joint_ate(sessions, traj) < ATE_GATE
 
 
 @pytest.mark.parametrize("package", PACKAGES)
-def test_without_a_vocabulary_the_sessions_stay_apart(room, package):
-    seq, _, sessions, _ = room
-    slam = _system(package, seq, None)
-    rows, _ = _drive([slam], room)
-    assert [r[4] for r in rows[0]][-1] == [0, 1]
-    assert slam.get_tracking_state().name == State.OK.name
-    assert _joint_ate(sessions, slam.trajectory_tum()) > CONTROL_ATE
+def test_without_a_vocabulary_the_sessions_stay_apart(room, lockstep, package):
+    sessions = room[2]
+    out = lockstep["tpuslam_control"] if package == "tpuslam" else _control("port", room)
+    assert out["map_ids"] == [0, 1]
+    assert out["state"] == State.OK.name
+    assert _joint_ate(sessions, out["traj"]) > CONTROL_ATE
 
 
 @pytest.mark.parametrize("package", PACKAGES)
-def test_run_main_merges_the_second_session(room, tmp_path, package):
-    seq, frames, sessions, voc = room
-    script = _script()
-    paths = []
-    for name, sess in zip(("MH01", "MH02"), sessions):
-        images = [tuple(np.clip(x, 0, 255).astype(np.uint8) for x in frames[sess.start + i])
-                  for i in range(sess.n_frames)]
-        yaml_path = script.write_euroc(sess, str(tmp_path / name), n_features=N_FEATURES,
-                                       images=images)
-        paths.append(str(tmp_path / name))
-    out = tmp_path / "traj.txt"
-    argv = ["--dataset", "euroc", "--path", ",".join(paths), "--settings", yaml_path,
-            "--sensor", "stereo", "--vocab", voc, "--output", str(out)]
-    rep = (run.main(argv + ["--device", "cpu"]) if package == "port" else j_run.main(argv))
+def test_run_main_merges_the_second_session(room, lockstep, tmp_path, package):
+    sessions = room[2]
+    rep, traj = (lockstep["tpuslam_run_main"] if package == "tpuslam"
+                 else _run_main("port", room, str(tmp_path)))
     assert rep["maps"] == 1 and rep["state"] == "OK" and rep["frames"] == N_A + N_B, rep
-    traj = np.loadtxt(out, ndmin=2)
     assert len(traj) == N_A + N_B
     assert _joint_ate(sessions, traj) < ATE_GATE

@@ -17,6 +17,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 
 from tpuslam_torch.io.synthetic import SyntheticSequence
 from tpuslam_torch.place import save_orbvoc_text, train_vocabulary
@@ -27,7 +28,11 @@ N_SESSIONS, N_FRAMES, STRIDE = 5, 8, 3
 SEQS = [f"MH0{k + 1}" for k in range(N_SESSIONS)]
 
 
-def test_euroc_examples_runner_on_the_cpu(tmp_path):
+@pytest.fixture(scope="module")
+def runner(tmp_path_factory):
+    """The runner over the written trees: its reports by run and its
+    output directory."""
+    tmp_path = tmp_path_factory.mktemp("euroc_runner")
     script = _script()
     room = SyntheticSequence(seed=0, n_frames=STRIDE * (N_SESSIONS - 1) + N_FRAMES, fps=10.0,
                              speed=0.5, baseline=0.1)
@@ -56,12 +61,25 @@ def test_euroc_examples_runner_on_the_cpu(tmp_path):
             run_of = line.split()[1]
         elif line.startswith("{"):
             reports[run_of] = json.loads(line)
-    assert sorted(reports) == SEQS + ["multi-session"], res.stdout[-3000:]
+    return reports, out, res.stdout
+
+
+def test_euroc_examples_runner_on_the_cpu(runner):
+    reports, _, stdout = runner
+    assert sorted(reports) == SEQS + ["multi-session"], stdout[-3000:]
+
+
+def test_each_sequence_ends_ok_with_its_trajectory_files(runner):
+    reports, out, _ = runner
     for name in SEQS:
         rep = reports[name]
         assert rep["state"] == "OK" and rep["frames"] == N_FRAMES, (name, rep)
         for kind in ("f", "kf"):
             rows = np.loadtxt(out / f"{kind}_{name}_stereo.txt", ndmin=2)
             assert len(rows) >= 2 and rows.shape[1] == 8, (name, kind)
+
+
+def test_the_multi_session_line_runs_every_session(runner):
+    reports, out, _ = runner
     assert reports["multi-session"]["frames"] == N_SESSIONS * N_FRAMES
     assert (out / "f_MH01_05_multi.txt").exists()

@@ -12,9 +12,9 @@ packages (the fused steps are pinhole-only): process_stereo_fisheye, the
 camera-generic KB8 pose solve until the mapper initializes the IMU (its
 10th keyframe), then the KB8 pose_inertial_solve. Both Systems get the
 same numpy images and IMU arrays; the port runs in f64, as tpuslam does
-here (the card runs f32: chip_smoke.py phase 13). tpuslam's System runs in
-a process of its own beside the port's (tests/torch_child.py), and the two
-are compared frame by frame afterwards.
+here (the card runs f32: chip_smoke.py phase 13). tpuslam's run is read
+from its record (tests/torch_records.py, written by
+tests/make_tpuslam_records.py) and compared frame by frame.
 
   * The slice, 31 frames in lockstep: on every frame the tracking state is
     equal; the stereo init happens on the same frame, by frame 3; until
@@ -56,7 +56,7 @@ from tpuslam_torch.imu.preintegration import ImuCalib
 from tpuslam_torch.solve import pose_inertial, pose_opt_cuda, pose_opt_dispatch
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg
-import torch_child
+import torch_records
 from torch_fisheye_rig import BASELINE, kb8_rig
 from torch_vi_heave import heave_sequence
 
@@ -116,12 +116,18 @@ def _tpuslam_slice():
     return dict(out, traj=js.trajectory_tum(), events=list(js.local_mapper.debug_events))
 
 
+def _record_inputs():
+    """Fingerprints of the inputs of tpuslam's recorded run (tests/torch_records.py)."""
+    return {"frames": torch_records.sequence_fingerprint(
+        _sequence()[0], N_SLICE, right=True)}
+
+
 @pytest.fixture(scope="module")
 def runs():
-    """Both Systems in lockstep over the slice (tpuslam's in a process of its
-    own, tests/torch_child.py), then the port alone to N_FRAMES. Returns what
+    """Both Systems in lockstep over the slice (tpuslam's from its record,
+    tests/torch_records.py), then the port alone to N_FRAMES. Returns what
     the tests read."""
-    jax_side = torch_child.start(_tpuslam_slice)
+    jax_side = torch_records.recorded("fisheye_inertial", _record_inputs())
     seq, (cam, cam2, Trl) = _sequence()
     ts = System(cam, SlamConfig(orb=OrbConfig(n_features=700),
                                 tracking=TrackingConfig(**TRACKING)),

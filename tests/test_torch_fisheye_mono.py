@@ -9,8 +9,8 @@ unprojected KB8 rays. The port's two-view RANSAC samples are tpuslam's own
 draws (tests/test_torch_vi_system.py's jax_draw), both Systems get
 the same numpy images and IMU arrays, and the port runs in f64, as
 tpuslam does here (the card runs f32: chip_smoke.py phase 14). tpuslam's
-mono-inertial System runs in a process of its own beside the port's
-(tests/torch_child.py), and the two are compared frame by frame afterwards.
+mono-inertial run is read from its record (tests/torch_records.py, written
+by tests/make_tpuslam_records.py) and compared frame by frame.
 
   * Monocular: tests/test_torch_fisheye_mono_slice.py.
   * Mono-inertial (vi_excite, IMU at 200 Hz, tests/test_torch_vi_system.py's
@@ -51,7 +51,7 @@ from tpuslam_torch.ops import twoview
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg, jax_draw
 from test_torch_fisheye_inertial import route_spies
-import torch_child
+import torch_records
 from torch_fisheye_rig import kb8_rig
 
 torch.set_num_threads(2)
@@ -94,12 +94,18 @@ def _tpuslam_slice():
     return dict(out, traj=js.trajectory_tum(), events=list(js.local_mapper.debug_events))
 
 
+def _record_inputs():
+    """Fingerprints of the inputs of tpuslam's recorded run (tests/torch_records.py)."""
+    return {"frames": torch_records.sequence_fingerprint(
+        _sequence(kb8_rig()[0]), N_SLICE)}
+
+
 @pytest.fixture(scope="module")
 def mono_vi_runs():
-    """Both IMU_MONOCULAR Systems in lockstep over the slice (tpuslam's in a
-    process of its own, tests/torch_child.py), then the port alone to
-    N_MONO_VI. Returns what the tests read."""
-    jax_side = torch_child.start(_tpuslam_slice)
+    """Both IMU_MONOCULAR Systems in lockstep over the slice (tpuslam's from
+    its record, tests/torch_records.py), then the port alone to N_MONO_VI.
+    Returns what the tests read."""
+    jax_side = torch_records.recorded("fisheye_mono", _record_inputs())
     cam, _, ts = _systems("IMU_MONOCULAR", imu=True)
     seq = _sequence(cam)
     times = seq.timestamps()

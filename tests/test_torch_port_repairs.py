@@ -4,7 +4,8 @@
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
     helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
-    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py),
+    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py)
+    and tests/torch_mono_merge.py and tests/torch_records.py,
     imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
     matplotlib, PIL (a
     subprocess with all of them blocked imports them all and writes a
@@ -74,7 +75,10 @@ import torch_vi_heave
 import torch_fisheye_rig
 import torch_vi_merge
 import torch_async
+import torch_mono_merge
+import torch_records
 assert len(torch_vi_merge.heave_sessions(2, 1, 2)[1]) == 2
+assert torch_mono_merge.config().orb.n_features == torch_mono_merge.N_FEATURES
 # the TUM-VI tree writer, on a 2-frame KB8 heave sequence at 64x64
 import tempfile
 cam, cam2, Trl = torch_fisheye_rig.kb8_rig(64)
@@ -85,6 +89,7 @@ from tpuslam_torch.io.datasets import load_tum_vi
 from tpuslam_torch.io.settings import load_settings
 assert len(load_tum_vi(out, stereo=True, with_imu=True)) == 2
 assert load_settings(out + "/tum_vi.yaml").camera2.kind == "kb8"
+assert len(torch_records.text_digest(out + "/tum_vi.yaml")) == 64
 # the long VI run's --stereo sequence (the heave helper, imported by the script)
 vi_f32 = scripts["scripts/vi_f32_experiment_torch.py"]
 assert type(vi_f32.sequence(3, stereo=True).traj) is torch_vi_heave.HeaveTrajectory
@@ -135,6 +140,19 @@ def test_vi_merge_helper_imports_only_the_port_and_numpy():
     standard library and the heave helper."""
     assert _import_roots("torch_vi_merge.py") == {"importlib", "os", "numpy", "tpuslam_torch",
                                                   "torch_vi_heave"}
+
+
+def test_mono_merge_helper_imports_only_the_port_and_numpy():
+    """So does tests/torch_mono_merge.py (the monocular merge's room),
+    beside the standard library and torch."""
+    assert _import_roots("torch_mono_merge.py") == {"importlib", "os", "numpy", "torch",
+                                                    "tpuslam_torch"}
+
+
+def test_records_helper_imports_only_the_standard_library_and_numpy():
+    """tests/torch_records.py (tpuslam's recorded lockstep sides) loads
+    without jax."""
+    assert _import_roots("torch_records.py") == {"gzip", "hashlib", "os", "pickle", "numpy"}
 
 
 def test_async_helper_imports_only_the_standard_library():

@@ -15,9 +15,14 @@ a KB8 settings file with TUM_512.yaml's keys (700 features).
     init) and `--sensor mono` (the two-view init on KB8 rays from tpuslam's
     own RANSAC draws): both report OK with the same frame, keyframe and map
     counts, and their trajectory files agree row by row within 1 cm and 0.2
-    degrees (the tolerances of tests/test_torch_system.py).
+    degrees (the tolerances of tests/test_torch_system.py). tpuslam's two
+    runs are read from their record (tests/torch_records.py, written by
+    tests/make_tpuslam_records.py).
   * The runner script: tests/test_torch_tum_vi_runner.py.
 """
+
+import os
+import tempfile
 
 import numpy as np
 import pytest
@@ -34,20 +39,24 @@ from test_torch_cli import _rot_deg, _script
 from test_torch_vi_system import jax_init_draw  # noqa: F401
 from torch_fisheye_rig import BASELINE, kb8_rig
 from torch_vi_heave import heave_sequence
+import torch_records
 
 torch.set_num_threads(2)
 N_FRAMES, SIZE = 12, 320
 
 
-@pytest.fixture(scope="module")
-def tree(tmp_path_factory):
-    """The written TUM-VI tree: (sequence, its path, the settings file)."""
+def write_tree(out):
+    """Write the TUM-VI tree to out: (sequence, its path, the settings file)."""
     cam, cam2, Trl = kb8_rig(SIZE)
     seq = heave_sequence(n_frames=N_FRAMES, fps=10.0, speed=0.5, camera=cam, camera2=cam2,
                          Trl=Trl)
-    out = tmp_path_factory.mktemp("tum_vi") / "room1"
-    yaml_path = _script().write_tum_vi(seq, str(out), n_features=700)
-    return seq, str(out), yaml_path
+    yaml_path = _script().write_tum_vi(seq, out, n_features=700)
+    return seq, out, yaml_path
+
+
+@pytest.fixture(scope="module")
+def tree(tmp_path_factory):
+    return write_tree(str(tmp_path_factory.mktemp("tum_vi") / "room1"))
 
 
 def test_tum_vi_tree_loads_in_both_packages(tree):
@@ -76,18 +85,49 @@ def test_tum_vi_tree_loads_in_both_packages(tree):
     np.testing.assert_array_equal(a.frame_right(3), b.frame_right(3))
 
 
-@pytest.mark.parametrize("sensor", ["stereo_imu", "mono"])
-def test_run_main_tum_vi_matches_tpuslam(tree, tmp_path, sensor, jax_init_draw):
+SENSORS = ["stereo_imu", "mono"]
+
+
+def _tpuslam_runs(path, yaml_path):
+    """tpuslam's run.main on the tree for each sensor (its record's runs):
+    {sensor: (report, trajectory rows)}."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for sensor in SENSORS:
+            traj = os.path.join(tmp, f"ref_{sensor}.txt")
+            rep = j_run.main(["--dataset", "tum_vi", "--path", path, "--settings", yaml_path,
+                              "--sensor", sensor, "--eval", "--output", traj])
+            out[sensor] = (rep, np.loadtxt(traj))
+    return out
+
+
+def record_inputs(tree):
+    """Fingerprints of the inputs of tpuslam's recorded runs
+    (tests/torch_records.py): the sequence the tree was written from and its
+    settings file."""
+    seq, _, yaml_path = tree
+    return {"frames": torch_records.sequence_fingerprint(seq, N_FRAMES, right=True),
+            "settings": torch_records.text_digest(yaml_path)}
+
+
+@pytest.fixture(scope="module")
+def tpuslam_runs(tree):
+    """tpuslam's runs, from their record (tests/torch_records.py)."""
+    return torch_records.recorded("tum_vi_cli", record_inputs(tree))
+
+
+@pytest.mark.parametrize("sensor", SENSORS)
+def test_run_main_tum_vi_matches_tpuslam(tree, tpuslam_runs, tmp_path, sensor, jax_init_draw):
     seq, path, yaml_path = tree
     common = ["--dataset", "tum_vi", "--path", path, "--settings", yaml_path, "--sensor", sensor,
               "--eval"]
     got = run.main(common + ["--output", str(tmp_path / "port.txt"), "--device", "cpu"])
-    want = j_run.main(common + ["--output", str(tmp_path / "ref.txt")])
+    want, b = tpuslam_runs.result()[sensor]
     assert got["state"] == want["state"] == "OK"
     for k in ("frames", "keyframes", "maps"):
         assert got[k] == want[k], k
     assert got["frames"] == N_FRAMES and got["keyframes"] >= 2 and got["maps"] == 1
-    a, b = np.loadtxt(tmp_path / "port.txt"), np.loadtxt(tmp_path / "ref.txt")
+    a = np.loadtxt(tmp_path / "port.txt")
     assert a.shape == b.shape and len(a) >= N_FRAMES - 5
     assert np.array_equal(a[:, 0], b[:, 0])
     for ra, rb in zip(a, b):

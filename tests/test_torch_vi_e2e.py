@@ -8,6 +8,7 @@ init and the fused visual-inertial step after it.
 """
 
 import numpy as np
+import pytest
 import torch
 
 from tpuslam.eval.ate import ate_rmse, horn_align
@@ -24,8 +25,10 @@ from test_torch_vi_system import NOISE, _gt_centers, _imu
 torch.set_num_threads(2)
 
 
-def test_port_mono_inertial_gates():
-    """tests/test_e2e_mono_inertial.py's run and gates on the port alone."""
+@pytest.fixture(scope="module")
+def run():
+    """tests/test_e2e_mono_inertial.py's run on the port alone, with the
+    tracker's stage samples."""
     seq = SyntheticSequence(n_frames=55, fps=10, speed=0.5, imu_rate=200.0, kind="vi_excite")
     slam = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height),
                   SlamConfig(orb=OrbConfig(n_features=600),
@@ -36,22 +39,38 @@ def test_port_mono_inertial_gates():
     for i in range(seq.n_frames):
         slam.track_monocular(seq.frame(i), times[i], imu=_imu(seq, times, i))
     slam.shutdown()
-    m = slam.map
-    assert m.imu_initialized
-    assert slam.get_tracking_state() == State.OK
+    samples = {k: len(GLOBAL_TIMER.samples.get(k, []))
+               for k in ("track_fused_vi", "track", "imu_stage")}
     traj = slam.trajectory_tum()
     est = np.array([r[1:4] for r in traj])
-    gt = _gt_centers(seq, traj)
+    return seq, slam, samples, est, _gt_centers(seq, traj)
+
+
+def test_port_mono_inertial_gates(run):
+    """tests/test_e2e_mono_inertial.py's run and gates on the port alone."""
+    seq, slam, _, est, gt = run
+    assert slam.map.imu_initialized
+    assert slam.get_tracking_state() == State.OK
     rmse, scale = ate_rmse(est, gt, with_scale=True)
     assert abs(scale - 1.0) < 0.4, scale
     assert rmse < 0.06, rmse
     R, _, s, _ = horn_align(est, gt, with_scale=True)
     assert abs(R[2, 2]) > 0.99, R
+
+
+def test_keyframe_velocities(run):
+    seq, slam, _, est, gt = run
+    m = slam.map
+    R, _, s, _ = horn_align(est, gt, with_scale=True)
     errs = [np.linalg.norm(s * R @ m.kf_vel[k] - seq.traj.vel(m.kf_time[k]))
             for k in m.valid_kf_ids()]
     assert np.median(errs) < 0.2, np.median(errs)
-    # both tracking paths ran: the host path before the init, the fused
-    # visual-inertial step after it
-    assert len(GLOBAL_TIMER.samples.get("track_fused_vi", [])) >= 10
-    assert len(GLOBAL_TIMER.samples.get("track", [])) >= 10
-    assert len(GLOBAL_TIMER.samples.get("imu_stage", [])) > 0
+
+
+def test_both_tracking_paths_ran(run):
+    """The host path before the init, the fused visual-inertial step after
+    it."""
+    samples = run[2]
+    assert samples["track_fused_vi"] >= 10
+    assert samples["track"] >= 10
+    assert samples["imu_stage"] > 0

@@ -9,7 +9,9 @@ initializes on frame 15, its 6th keyframe), B is frames 6-16 of the same
 heave sequence stamped from 100 s, so B opens map 1 at a pose A passed
 through. The vocabulary is trained here on frames of the sequence and
 loaded by both packages; the GBA runs synchronously; the port (f64, as
-tpuslam runs here) takes tpuslam's Sim3 RANSAC draws.
+tpuslam runs here) takes tpuslam's Sim3 RANSAC draws. tpuslam's run is read
+from its record (tests/torch_records.py, written by
+tests/make_tpuslam_records.py) and compared frame by frame.
 
   * Lockstep until the runs part: on every frame the same tracking state,
     map ids and keyframe count, poses within 1 cm and 0.2 degrees
@@ -58,6 +60,7 @@ from tpuslam_torch.imu.preintegration import ImuCalib
 from tpuslam_torch.place import load_orbvoc
 from tpuslam_torch.solve import sim3 as t_sim3
 
+import torch_records
 from torch_vi_merge import (FAST_INIT, FEATURES, HEAVE_A, NOISE, heave_sessions, session_imu,
                             vocabulary_text)
 
@@ -88,18 +91,17 @@ def _system(package, seq, voc):
                    imu_calib=JImuCalib(**NOISE), bf=bf, vocab=j_load_orbvoc(voc))
 
 
-@pytest.fixture(scope="module")
-def lockstep(tmp_path_factory):
-    """Both Systems over A, change_dataset(), then B, frame by frame. Per
-    package: rows (session, frame, t, Tcw, state, map ids, keyframes), the
-    merges corrected [(frame, kf, cand)], the IMU inits [(frame, chain,
-    largest move of a keyframe of A)], A's keyframe poses at the end of A
-    and at the end of B."""
+def _run(package, voc):
+    """One package's System over A, change_dataset(), then B, frame by
+    frame. Returns its rows (session, frame, t, Tcw, state, map ids,
+    keyframes), the merges corrected [(frame, kf, cand)], the IMU inits
+    [(frame, chain, largest move of a keyframe of A, ok)], A's keyframe
+    poses at the end of A, and what the tests read of its map and closer.
+    The port takes tpuslam's Sim3 RANSAC draws."""
     seq, sessions = heave_sessions()
-    voc = vocabulary_text(seq, str(tmp_path_factory.mktemp("voc") / "voc.txt"))
-    systems = dict(zip(PACKAGES, (_system(p, seq, voc) for p in PACKAGES)))
+    slam = _system(package, seq, voc)
     frame = [0]
-    rec = {p: dict(rows=[], merges=[], inits=[]) for p in PACKAGES}
+    rec = dict(rows=[], merges=[], inits=[])
     key = [jax.random.PRNGKey(7)]
 
     def draw(n_valid, n_hyp, generator=None):
@@ -107,7 +109,7 @@ def lockstep(tmp_path_factory):
         return torch.as_tensor(np.asarray(
             jax.random.randint(sub, (n_hyp, 3), 0, max(int(n_valid), 1))))
 
-    def init_probe(package, real):
+    def init_probe(real):
         def run_imu_init(m, *a, **kw):
             chain = [int(k) for k in m.temporal_chain()]
             before = {k: m.kf_center(k).copy() for k in chain}
@@ -115,42 +117,62 @@ def lockstep(tmp_path_factory):
             a_kfs = [k for k in chain if m.kf_time[k] < sessions[1].t0]
             moved = max((float(np.linalg.norm(m.kf_center(k) - before[k])) for k in a_kfs),
                         default=0.0)
-            rec[package]["inits"].append((frame[0], chain, moved, bool(ok)))
+            rec["inits"].append((frame[0], chain, moved, bool(ok)))
             return ok
         return run_imu_init
 
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(t_sim3, "draw_samples", draw)
-        mp.setattr(local_mapping, "run_imu_init",
-                   init_probe("port", local_mapping.run_imu_init))
-        mp.setattr(j_inertial, "run_imu_init", init_probe("tpuslam", j_inertial.run_imu_init))
-        for p, slam in systems.items():
-            real = slam.loop_closer._correct_loop
+        if package == "port":
+            mp.setattr(t_sim3, "draw_samples", draw)
+            mp.setattr(local_mapping, "run_imu_init", init_probe(local_mapping.run_imu_init))
+        else:
+            mp.setattr(j_inertial, "run_imu_init", init_probe(j_inertial.run_imu_init))
+        real = slam.loop_closer._correct_loop
 
-            def correct(kf, cand, *a, merge=False, _real=real, _got=rec[p]["merges"], **kw):
-                if merge:
-                    _got.append((frame[0], int(kf), int(cand)))
-                return _real(kf, cand, *a, merge=merge, **kw)
+        def correct(kf, cand, *a, merge=False, **kw):
+            if merge:
+                rec["merges"].append((frame[0], int(kf), int(cand)))
+            return real(kf, cand, *a, merge=merge, **kw)
 
-            slam.loop_closer._correct_loop = correct
+        slam.loop_closer._correct_loop = correct
         for s, sess in enumerate(sessions):
             if s:
-                for p, slam in systems.items():
-                    rec[p]["a_kfs"] = {int(k): (slam.map.kf_R[k].copy(), slam.map.kf_t[k].copy())
-                                       for k in slam.map.valid_kf_ids()}
-                    slam.change_dataset()
+                rec["a_kfs"] = {int(k): (slam.map.kf_R[k].copy(), slam.map.kf_t[k].copy())
+                                for k in slam.map.valid_kf_ids()}
+                slam.change_dataset()
             for i, t in enumerate(sess.timestamps()):
-                left, right = sess.frame(i), sess.frame(i, right=True)
-                for p, slam in systems.items():
-                    Tcw = slam.track_stereo(left, right, float(t), imu=session_imu(sess, i))
-                    m = slam.map
-                    rec[p]["rows"].append((s, i, float(t), None if Tcw is None else np.asarray(Tcw),
-                                           slam.get_tracking_state().name, m.map_ids(),
-                                           len(m.valid_kf_ids(all_maps=True))))
+                Tcw = slam.track_stereo(sess.frame(i), sess.frame(i, right=True), float(t),
+                                        imu=session_imu(sess, i))
+                m = slam.map
+                rec["rows"].append((s, i, float(t), None if Tcw is None else np.asarray(Tcw),
+                                    slam.get_tracking_state().name, m.map_ids(),
+                                    len(m.valid_kf_ids(all_maps=True))))
                 frame[0] += 1
-    for slam in systems.values():
-        slam.shutdown()
-    return systems, rec
+    slam.shutdown()
+    m = slam.map
+    rec["map"] = {f: np.array(getattr(m, f)[: m.n_kf]) for f in
+                  ("kf_valid", "kf_map_id", "kf_frame_id", "kf_time", "kf_R", "kf_t", "kf_bg")}
+    rec["merges_aborted"] = list(getattr(slam.loop_closer, "merges_aborted", []))
+    return rec
+
+
+def record_inputs(seq, voc):
+    """Fingerprints of the inputs of tpuslam's recorded run
+    (tests/torch_records.py): the heave sequence and the vocabulary."""
+    return {"frames": torch_records.sequence_fingerprint(seq, seq.n_frames, right=True),
+            "vocabulary": torch_records.text_digest(voc)}
+
+
+@pytest.fixture(scope="module")
+def lockstep(tmp_path_factory):
+    """Both Systems over A, change_dataset(), then B: tpuslam's from its
+    record (tests/torch_records.py), compared with the port's frame by frame
+    (neither System reads the other). Per package, _run's record."""
+    seq, _ = heave_sessions()
+    voc = vocabulary_text(seq, str(tmp_path_factory.mktemp("voc") / "voc.txt"))
+    jax_side = torch_records.recorded("vi_merge", record_inputs(seq, voc))
+    port = _run("port", voc)
+    return {"port": port, "tpuslam": jax_side.result()}
 
 
 def _parting_frame(rec):
@@ -159,7 +181,7 @@ def _parting_frame(rec):
 
 
 def test_lockstep_until_the_merge_decision(lockstep):
-    systems, rec = lockstep
+    rec = lockstep
     rows_p, rows_j = rec["port"]["rows"], rec["tpuslam"]["rows"]
     part = _parting_frame(rec)
     assert HEAVE_A < part < len(rows_j), part
@@ -176,11 +198,11 @@ def test_lockstep_until_the_merge_decision(lockstep):
     # the same merge, confirmed on the same frame: tpuslam corrects it, the
     # port aborts it because B has not initialized its IMU
     (_, kf, cand), = rec["tpuslam"]["merges"]
-    lc = systems["port"].loop_closer
-    assert lc.merges_aborted[0] == (kf, cand), lc.merges_aborted
-    m = systems["port"].map
-    assert m.kf_map_id[kf] == 1 and m.kf_map_id[cand] == 0
-    assert m.kf_frame_id[kf] == systems["tpuslam"].map.kf_frame_id[kf]
+    aborted = rec["port"]["merges_aborted"]
+    assert aborted[0] == (kf, cand), aborted
+    m = rec["port"]["map"]
+    assert m["kf_map_id"][kf] == 1 and m["kf_map_id"][cand] == 0
+    assert m["kf_frame_id"][kf] == rec["tpuslam"]["map"]["kf_frame_id"][kf]
     assert rows_j[part][5] == [0] and rows_p[part][5] == [0, 1]
 
 
@@ -188,8 +210,8 @@ def test_tpuslam_merges_before_the_young_maps_imu_init(lockstep):
     """The fault of tpuslam's detection and store (ROADMAP §3): the merge
     runs without B's IMU init, and the IMU stage then initializes the merged
     map again over both sessions, rewriting A's gravity-aligned keyframes."""
-    systems, rec = lockstep
-    js, part = systems["tpuslam"], _parting_frame(rec)
+    rec = lockstep
+    jm, part = rec["tpuslam"]["map"], _parting_frame(rec)
     rows = rec["tpuslam"]["rows"]
     # the merge left one map whose flags say "not initialized"
     assert all(r[5] == [0] for r in rows[part:])
@@ -201,16 +223,15 @@ def test_tpuslam_merges_before_the_young_maps_imu_init(lockstep):
     fi, chain, moved, ok = again[0]
     a_kfs = set(rec["tpuslam"]["a_kfs"])
     assert ok and a_kfs <= set(chain) and len(chain) > len(a_kfs)
-    jm = js.map
-    times = jm.kf_time[chain]
+    times = jm["kf_time"][chain]
     assert times.max() - times.min() > 90.0
     assert moved > 0.1, moved          # decimetres: A's map is rewritten
-    assert np.abs(jm.kf_bg[chain[-1]]).max() > 0.1, jm.kf_bg[chain[-1]]
+    assert np.abs(jm["kf_bg"][chain[-1]]).max() > 0.1, jm["kf_bg"][chain[-1]]
 
 
 def test_the_port_keeps_both_maps_until_the_young_maps_imu_init(lockstep):
-    systems, rec = lockstep
-    slam, rows = systems["port"], rec["port"]["rows"]
+    rec = lockstep
+    rows = rec["port"]["rows"]
     part = _parting_frame(rec)
     assert rec["port"]["merges"] == []
     assert all(r[4] == "OK" for r in rows[part:]) and all(r[5] == [0, 1] for r in rows[part:])
@@ -218,8 +239,8 @@ def test_the_port_keeps_both_maps_until_the_young_maps_imu_init(lockstep):
     assert [x[2] for x in rec["port"]["inits"]][1:] == [0.0] * (len(rec["port"]["inits"]) - 1)
     assert all(max(x[1]) < min(rec["port"]["a_kfs"]) or set(x[1]) <= set(rec["port"]["a_kfs"])
                for x in rec["port"]["inits"])
-    m = slam.map
+    m = rec["port"]["map"]
     for k, (R, t) in rec["port"]["a_kfs"].items():
-        assert m.kf_valid[k] and m.kf_map_id[k] == 0
-        assert np.array_equal(m.kf_R[k], R) and np.array_equal(m.kf_t[k], t), k
-    assert len(slam.loop_closer.merges_aborted) >= 1
+        assert m["kf_valid"][k] and m["kf_map_id"][k] == 0
+        assert np.array_equal(m["kf_R"][k], R) and np.array_equal(m["kf_t"][k], t), k
+    assert len(rec["port"]["merges_aborted"]) >= 1

@@ -15,9 +15,8 @@ the local inertial BAs with zero priors.
   * The schedule in lockstep: tpuslam's IMU_MONOCULAR System and the port's
     (f64, as tpuslam runs here) on the same frames and IMU samples, the
     port's two-view draw tpuslam's own (tests/test_torch_vi_system.py's
-    jax_draw); tpuslam's System runs in a process of its own beside the
-    port's (tests/torch_child.py), and the two are compared frame by frame
-    afterwards. Every frame the same tracking state; up to LOCKSTEP also the
+    jax_draw); tpuslam's run is read from its record (tests/torch_records.py,
+    written by tests/make_tpuslam_records.py) and compared frame by frame. Every frame the same tracking state; up to LOCKSTEP also the
     keyframe count and the poses (1 cm, 0.2 degrees). There they part on a
     borderline decision: on frame 7 keyframe 2's fuse predicts the level
     of point 104 in keyframe 0 as ceil(log(1.44) / log(1.2)) on a ratio
@@ -72,7 +71,8 @@ from tpuslam_torch.map.store import SlamMap, map_from_numpy, map_state
 from tpuslam_torch.ops import twoview
 
 from test_torch_vi_system import NOISE, _gt_centers, _imu, _rot_deg, jax_draw
-import torch_child
+import torch_records
+import torch_vi_merge_state
 
 torch.set_num_threads(2)
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -197,16 +197,39 @@ def _tpuslam_run():
             out["state"].append(js.get_tracking_state().name)
             out["n_kf"].append(len(js.map.valid_kf_ids()))
             out["init"].append(js.map.imu_initialized)
-    return dict(out, calls=calls, branches=branches, events=list(js.local_mapper.debug_events),
-                end=_end_state(js))
+    return dict(out, calls=calls, branches=_pack(branches),
+                events=list(js.local_mapper.debug_events), end=_end_state(js))
+
+
+def _pack(branches):
+    """The branches with their map states in tests/torch_vi_merge_state.py's
+    layout (one table of the keyframes' features, the bits packed)."""
+    states = torch_vi_merge_state.pack({f"{b}.{w}.": rec[w][0] for b, rec in branches.items()
+                                        for w in ("before", "after")})
+    return dict(states=states, rest={b: dict(rec, before=rec["before"][1], after=rec["after"][1])
+                                     for b, rec in branches.items()})
+
+
+def _unpack(packed):
+    """_pack's branches back as _keep_branches keeps them."""
+    return {b: dict(rec, **{w: (torch_vi_merge_state.unpack(packed["states"], f"{b}.{w}."),
+                                rec[w])
+                            for w in ("before", "after")})
+            for b, rec in packed["rest"].items()}
+
+
+def _record_inputs():
+    """Fingerprints of the inputs of tpuslam's recorded run (tests/torch_records.py)."""
+    return {"frames": torch_records.sequence_fingerprint(
+        script.sequence(N_SCHEDULE, stereo=False), N_SCHEDULE)}
 
 
 @pytest.fixture(scope="module")
 def schedule_runs():
     """tpuslam's and the port's IMU_MONOCULAR Systems in lockstep over the
-    script's sequence with the shortened schedule, tpuslam's in a process of
-    its own (tests/torch_child.py), compared frame by frame afterwards."""
-    jax_side = torch_child.start(_tpuslam_run)
+    script's sequence with the shortened schedule, tpuslam's from its record
+    (tests/torch_records.py), compared frame by frame afterwards."""
+    jax_side = torch_records.recorded("vi_schedule", _record_inputs())
     seq = script.sequence(N_SCHEDULE, stereo=False)
     ts = System(Pinhole([seq.fx, seq.fy, seq.cx, seq.cy], seq.width, seq.height), _config()[1],
                 sensor=Sensor.IMU_MONOCULAR, imu_calib=ImuCalib(**NOISE), dtype=torch.float64,
@@ -228,7 +251,8 @@ def schedule_runs():
     steps = [dict(T=(j["T"][i], Tt), state=(j["state"][i], state), n_kf=(j["n_kf"][i], n_kf),
                   init=(j["init"][i], init))
              for i, (Tt, state, n_kf, init) in enumerate(port)]
-    return dict(seq=seq, steps=steps, calls=dict(calls, **j["calls"]), branches=j["branches"],
+    return dict(seq=seq, steps=steps, calls=dict(calls, **j["calls"]),
+                branches=_unpack(j["branches"]),
                 events={"jax": j["events"], "port": list(ts.local_mapper.debug_events)},
                 end={"jax": j["end"], "port": _end_state(ts)})
 

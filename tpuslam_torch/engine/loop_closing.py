@@ -367,22 +367,24 @@ class LoopCloser:
         Xc = np.einsum("pij,pj->pi", Ro, m.mp_pos[pt_ids]) + to
         m.mp_pos[pt_ids] = np.einsum("pji,pj->pi", Rn, Xc - tn) / sn[:, None]
 
-    def _seam_poses(self, old_side, kf: int, kf_old_pose):
-        """The merge map's keyframes posed in the young map's frame before
-        the transport, {kf: (R, t)}. The essential graph measures every edge
-        between the poses from before the correction; across the seam the
-        young keyframe's pose is in the young map's frame and the old
-        keyframe's in the merge map's, so without these the seam's
-        covisibility edges pull the young map back to where it was
-        (tpuslam measures them so). The transport moved every young
-        keyframe by one rigid G = T_kf_old^-1 T_kf_new; an old keyframe's
-        pose in the young frame is T_a G^-1. Rigid only: the merges of a
-        fixed-scale map (stereo, RGB-D, inertial)."""
+    def _seam_poses(self, old_side, kf: int, kf_old_pose, S_kf):
+        """The merge map's keyframes posed in the young map's frame and
+        scale before the transport, {kf: (s, R, t)}. The essential graph
+        measures every edge between the poses from before the correction;
+        across the seam the young keyframe's pose is in the young map's
+        frame and the old keyframe's in the merge map's, so without these
+        the seam's covisibility edges pull the young map back to where it
+        was (tpuslam measures them so). The transport moved every young
+        keyframe by one similarity: S_k = T_k_old G^-1 with G^-1 =
+        T_kf_old^-1 S_kf, S_kf the current keyframe's corrected Scw; an old
+        keyframe's pose in the young frame is T_a G = T_a S_kf^-1 T_kf_old,
+        whose scale is 1/s of S_kf (1 on a fixed-scale map: stereo, RGB-D,
+        inertial)."""
         m = self.map
         Ro, to = kf_old_pose
-        Rn, tn = m.kf_R[kf], m.kf_t[kf]
-        Rg, tg = Rn.T @ Ro, Rn.T @ (to - tn)           # G^-1 = T_kf_new^-1 T_kf_old
-        return {a: (m.kf_R[a] @ Rg, m.kf_R[a] @ tg + m.kf_t[a]) for a in old_side}
+        s, Rn, tn = S_kf
+        sg, Rg, tg = 1.0 / s, Rn.T @ Ro, Rn.T @ (to - tn) / s     # G = S_kf^-1 T_kf_old
+        return {a: (sg, m.kf_R[a] @ Rg, m.kf_R[a] @ tg + m.kf_t[a]) for a in old_side}
 
     def _correct_loop(self, kf: int, cand: int, s, R, t, match_pairs, merge: bool = False):
         """ref CorrectLoop (:1013); with merge=True the visual Atlas merge
@@ -459,8 +461,8 @@ class LoopCloser:
             # the graph and the weld BA (ref MergeLocal vpFixedKFs)
             old_side = [int(x) for x in m.valid_kf_ids(map_id=int(m.kf_map_id[cand]))]
             m.relabel_map(int(m.kf_map_id[kf]), int(m.kf_map_id[cand]))
-        if merge and self.fix_scale:
-            old_pose.update(self._seam_poses(old_side, kf, old_pose[kf]))
+        if merge:
+            old_pose.update(self._seam_poses(old_side, kf, old_pose[kf], corrected[kf]))
         # the essential graph with the new loop edge (S_kf<-cand)
         self.loop_edges.append((cand, kf, (s, R, t)))
         pre_R = {int(k): m.kf_R[k].copy() for k in m.valid_kf_ids()}

@@ -669,10 +669,14 @@ class Tracker:
             self.loop_closer.on_new_keyframe(kf1)
 
     def _initial_ba(self, kf0, kf1):
-        """Two-keyframe BA of the initial mono map, KF 0 fixed."""
+        """Two-keyframe BA of the initial mono map, KF 0 fixed: the points
+        the two keyframes triangulated, nothing of the Atlas's other maps.
+        tpuslam takes every valid point of the store, so a young map's init
+        after change_dataset() solves the older maps' points too, with each
+        of their observations read as one of kf1's, and writes them back."""
         m = self.map
         obs_kf, obs_pt, uvr, inv_s2 = [], [], [], []
-        mp_ids = m.valid_mp_ids()
+        mp_ids = m.points_in_kfs([kf0, kf1])
         remap = {int(j): i for i, j in enumerate(mp_ids)}
         for j in mp_ids:
             for kf, slot in m.mp_obs[j].items():

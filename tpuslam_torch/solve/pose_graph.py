@@ -236,7 +236,8 @@ def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool =
     loop_edges: [(kf_a, kf_b, (s, R, t) Sim3 b <- a measured)];
     corrected: {kf: (s, R, t)} corrected Scw seeds; the others seed from
     their pose with s = 1. Relative measurements come from `old_poses`
-    (the pre-correction poses, ref NonCorrectedSim3) where given. Writes the
+    (the pre-correction poses, ref NonCorrectedSim3: (R, t), or (s, R, t)
+    for a keyframe posed by a similarity) where given. Writes the
     poses back, translation rescaled by 1/s (ref :2610-2635), and returns
     {kf: (s, R, t)} for the map-point correction. `device`/`dtype`: where
     and in what float type the solve runs. four_dof: the inertial map's
@@ -259,15 +260,16 @@ def optimize_essential_graph(m, loop_edges, corrected, fix_kf, fix_scale: bool =
 
     def pose_of(k):
         if old_poses is not None and k in old_poses:
-            return old_poses[k]
-        return m.kf_R[k], m.kf_t[k]
+            pose = old_poses[k]
+            return (1.0, *pose) if len(pose) == 2 else pose
+        return 1.0, m.kf_R[k], m.kf_t[k]
 
     def rel(ka, kb):
-        """S_b <- a from the pre-correction poses, scale 1."""
-        Ra, ta = pose_of(ka)
-        Rb, tb = pose_of(kb)
+        """S_b <- a = S_b S_a^-1 from the pre-correction poses."""
+        sa, Ra, ta = pose_of(ka)
+        sb, Rb, tb = pose_of(kb)
         Rba = Rb @ Ra.T
-        return 1.0, Rba, tb - Rba @ ta
+        return sb / sa, Rba, tb - (sb / sa) * (Rba @ ta)
 
     ei, ej, sm, Rm, tm, ew = [], [], [], [], [], []
     seen = set()
