@@ -8,8 +8,8 @@ mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
 distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
 stereo-inertial and mono-inertial routes, the inertial mapper's whole
 IMU schedule, the multi-session stereo-inertial merge, and the mapper on
-its own thread for stereo-inertial SLAM and across both merges, and the
-multi-session monocular merge.
+its own thread for stereo-inertial SLAM and across both merges, the
+multi-session monocular merge and the multi-session mono-inertial merge.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -74,7 +74,8 @@ Phases, each raising on failure:
      tpuslam's async gates (IMU initialized, OK, scaled ATE under 8 cm),
      no worker errors, at least one async handshake
      (Tracker._sync_imu_from_map) that rebased the last frame, both
-     kernels launched;
+     kernels launched; (b) renders the frames anew and runs in a process
+     of its own (PhaseInChild) beside phases 3-8;
   8. fisheye stereo: System(camera2=, Tlr=).track_stereo at TUM-VI's
      512x512 over 20 frames at 20 fps (0.5 m/s) rendered by the port's
      Kannala-Brandt renderer from seed 0, the rig of
@@ -194,7 +195,7 @@ Phases, each raising on failure:
      tolerances), and the last (4 rounds) timed as in phase 2. (b) the
      same over 42 frames with async_mapping=True (the mapper, its IMU init and inertial
      BAs on the worker thread) under phase 7 (b)'s bounded back-pressure,
-     in a process of its own beside phases 11-14 and 16: phase 12's gates,
+     in a process of its own beside phases 9-12: phase 12's gates,
      at least one handshake rebase, no worker error, and both kernels held
      on the first fused VI frame after the async IMU init (its two patch
      gathers bitwise); the IMU init frame, the pose_inertial stage and the
@@ -225,7 +226,8 @@ Phases, each raising on failure:
      error under 0.2 m/s), exactly 1 patch-gather launch per frame, no
      pose-LM launch, phase 13's solver routes, the patch gather held
      against its plain version on frame 0, and phase 13's figures with the
-     two-view init frame.
+     two-view init frame. Phases 13 and 14 run in processes of their own
+     beside phases 9-12.
  15. the inertial mapper's whole schedule: scripts/vi_f32_experiment_torch.
      run (tpuslam's vi_f32_experiment.py run: mono-inertial on vi_excite at
      0.3 m/s, 376x240, 600 features, IMU at 200 Hz, f32) over 64 frames with
@@ -243,9 +245,9 @@ Phases, each raising on failure:
      path gave them: frame 0's patch gather (K = 600 over 8 levels of
      376x240, bitwise) and the first fused VI frame's 4 pose-LM calls
      (mono rows, phase 2's tolerances), the last of them timed as in
-     phase 2. It runs in a process of its own (PhaseInChild) at the same
-     time as phases 9 and 10, so the three phases' times are taken while
-     they share the host's cores and the card. The script's full 220-frame
+     phase 2. It runs in a process of its own (PhaseInChild) started after
+     phase 2, beside phases 3-10, so its times are taken while the phases
+     share the host's cores and the card. The script's full 220-frame
      runs take ~10 min each on an H100, so they run on their own, not
      here;
  16. two stereo-inertial sessions over one place merged into one Atlas
@@ -272,12 +274,42 @@ Phases, each raising on failure:
      rotation the yaw projection removed, the weld's size, the stage table
      and the second session's frame ms before and after the merge are
      printed. Both branches run in processes of their own (PhaseInChild)
-     beside phases 11-13, as does phase 14. Branch (b) runs a second time
-     (its second session 74 frames) with async_mapping=True (the merge's detection, correction, weld BA and
-     FullInertialBA on the mapping thread) under phase 7 (b)'s bounded
+     beside phases 9-12. Branch (b) runs
+     a second time (its second session 74 frames) with async_mapping=True
+     (the merge's detection, correction, weld BA and FullInertialBA on the
+     mapping thread) under phase 7 (b)'s bounded
      back-pressure, with (b)'s gates and no worker error; the merge's frame,
      the correction's ms and the longest frame wall of the second session
      while the correction holds the map lock are printed against (b)'s.
+     Every branch also prints which rows carry its joint ATE: the RMS of
+     the first session's rows, of the second's before the merge and from
+     it on, and the 8 largest row errors with their frame, how many frames
+     from the merge's and whether the frame overlapped the correction;
+ 17. two mono-inertial sessions over one place merged into one Atlas map
+     (tests/torch_mono_vi_merge.py: tests/torch_vi_merge.py's loop_sessions
+     seen by the left camera; 752x480, 1024 features, f32, IMU at 200 Hz, a
+     keyframe at least every 3 frames, the IMU init after 6 keyframes over
+     1 s and VIBA1 / VIBA2 0.5 / 1.0 s after it): the first session runs
+     its two-view init, IMU init, VIBA1 and VIBA2, the second comes round
+     to the first's arc just after its own two-view init and IMU init,
+     through System(sensor=IMU_MONOCULAR, vocab=).track_monocular(..., imu=)
+     with change_dataset() between them. It must make exactly one merge,
+     inside the second session and after its IMU init, the map count 2 ->
+     1, end OK with the IMU initialized and nothing left in the young map,
+     and pass the mono-inertial gates on one alignment of both sessions'
+     rows (scaled ATE under 6 cm, Horn scale within 0.4 of 1, |R[2, 2]| >
+     0.99, median KF velocity error under 0.2 m/s) with the two sessions'
+     Horn scales (each aligned alone) within 5 %; every frame makes 1
+     patch-gather launch, every fused VI frame 4 pose-LM launches and one
+     pose_inertial_solve. On the first fused VI frame after the merge both
+     kernels are held against their plain versions (the gather bitwise, the
+     4 pose-LM calls with phase 2's tolerances) and timed. The IMU events of
+     each session, the merges aborted, the rotation the yaw projection
+     removed, each map's Horn scale just before the correction, the weld's
+     size, the stage table and the second session's frame ms before and
+     after the merge are printed. Its control, the same frames without a
+     vocabulary: 2 maps, OK, run after it in the same process of its own,
+     beside phases 3-10 and 15.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
@@ -293,7 +325,9 @@ frame after the merge in vi_merge_shapes; phase 12 (b) as stereo_vi_async
 with its first fused VI frame's kernel inputs as stereo_vi_async_shapes,
 phase 9's run D as cli_d, phase 16 (b) async as vi_merge_b_async, phase
 9's run E as cli_e with the kernel inputs of its first fused frame after the
-merge as cli_e_shapes), the nvidia-smi line
+merge as cli_e_shapes, phase 17 as mono_vi_merge with the kernel inputs of
+its first fused VI frame after the merge as mono_vi_merge_shapes), the
+nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
 
@@ -377,6 +411,13 @@ N_VI_SCHEDULE = 64
 # second session ends ~10 frames after its merge. b_async: branch b with the
 # mapper on its own thread, whose merge lands some frames later
 N_VI_MERGE = {"a": (84, 6, 114), "b": (33, 45, 68), "b_async": (33, 45, 74)}
+# phase 17: tests/torch_mono_vi_merge.py's sessions (A's frames, B's first frame in
+# the sequence, B's frames). A runs 41 frames against the CPU tests' 26: at 752x480 and
+# fx = 458 its two-view init comes on its frame 16, not 5 (376x240, fx = 200), its IMU
+# init on 25-27, VIBA1 6 frames and VIBA2 11 frames later; B from 90 (the CPU tests:
+# 88) is recognised after its VIBA1 and before its VIBA2 (from 88: after its VIBA2;
+# from 92 or 94 its two-view init waits until its frame 30 on an H100)
+N_MONO_VI_MERGE = (41, 90, 26)
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
@@ -564,8 +605,9 @@ class PhaseInChild:
         return value
 
 
-def render(seq, n, kind="mono"):
-    """Frames 0..n-1 of seq (see _render_part), in order. The renderer is
+def render(seq, n, kind="mono", only=None):
+    """Frames 0..n-1 of seq (see _render_part), in order; only: the frames
+    to render (the others None). The renderer is
     numpy on the host, one frame at a time, so RENDER_WORKERS spawned
     processes share the frames. They are started on the first call and kept
     for the next phases (each takes seconds to import before its first
@@ -577,7 +619,8 @@ def render(seq, n, kind="mono"):
     if _render_pool is None:
         _render_pool = ProcessPoolExecutor(RENDER_WORKERS,
                                            mp_context=multiprocessing.get_context("spawn"))
-    parts = [range(w, n, RENDER_WORKERS) for w in range(RENDER_WORKERS)]
+    idx = list(range(n)) if only is None else sorted(only)
+    parts = [idx[w::RENDER_WORKERS] for w in range(RENDER_WORKERS)]
     done = list(_render_pool.map(_render_part, [seq] * RENDER_WORKERS, parts,
                                  [kind] * RENDER_WORKERS))
     frames = [None] * n
@@ -1480,6 +1523,15 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     return launches
 
 
+def phase_mono_vi_async(dev, smi):
+    """Phase 7 (b) in a process of its own: phase 7's frames rendered anew,
+    the run with the mapper on its own thread."""
+    import torch
+
+    torch.set_num_threads(2)
+    return phase_mono_vi(dev, smi, render_mono_vi(), async_mapping=True)
+
+
 def redecided_frames(rows, events, name):
     """The frames of a VI run (rows of launch counts) that extracted their
     features for the host path and then took the fused VI step: with the
@@ -1941,6 +1993,9 @@ class vi_merge_probe:
     fused visual-inertial frame after each merge (its patch gathers and its
     4 pose-LM calls)."""
 
+    def __init__(self, gathers=2):
+        self.gathers = gathers      # patch gathers per frame: 2 stereo, 1 mono
+
     def __enter__(self):
         import torch
 
@@ -1975,10 +2030,8 @@ class vi_merge_probe:
                 frame_lm.append(([x.clone() if torch.is_tensor(x) else x for x in a], dict(kw)))
             return sv["lm"](*a, **kw)
 
-        def attach(slam):
-            real = slam.track_stereo
-
-            def track_stereo(*a, **kw):
+        def probed(slam, real):
+            def track(*a, **kw):
                 before, init = vi_counts(), slam.map.imu_initialized
                 frame_gathers.clear()
                 frame_lm.clear()
@@ -1993,12 +2046,16 @@ class vi_merge_probe:
                                       (x - y for x, y in zip(vi_counts(), before)))))
                 probe.rows.append(row)
                 if (pending() and row["fused_vi"] and not row["host"] and len(frame_lm) == 4
-                        and len(frame_gathers) == 2):
+                        and len(frame_gathers) == probe.gathers):
                     probe.captured.append((list(frame_gathers), list(frame_lm),
                                            len(probe.rows) - 1))
                 return out
 
-            slam.track_stereo = track_stereo
+            return track
+
+        def attach(slam):
+            slam.track_stereo = probed(slam, slam.track_stereo)
+            slam.track_monocular = probed(slam, slam.track_monocular)
             probe.systems.append(slam)
             return slam
 
@@ -2220,6 +2277,24 @@ def phase_vi_merge(dev, smi, branch, async_mapping=False):
                    max_wall_second=max(probe.wall[n_a:]),
                    max_wall_under_lock=max(under_lock) if under_lock else None,
                    aborted=len(slam.loop_closer.merges_aborted))
+    if merge_frames:
+        # which rows carry the joint ATE: each row's error on the gates'
+        # alignment, by where its frame sits against the correction
+        t_rows, err = vm.row_errors(traj, sessions)
+        f_rows = np.array([frame_of(t) for t in t_rows])
+        m0 = merge_frames[0]
+        c0, c1 = probe.merges[0].get("span", (0.0, 0.0))
+        overlapped = {i for i, (f0, f1) in enumerate(probe.spans) if f0 < c1 and f1 > c0}
+        parts = {"A": f_rows < n_a, "B before the merge": (f_rows >= n_a) & (f_rows < m0),
+                 "B from the merge on": f_rows >= m0}
+        figures["row_rms_cm"] = {k: round(float(np.sqrt(np.mean(err[sel] ** 2))) * 100, 3)
+                                 for k, sel in parts.items() if sel.any()}
+        figures["worst_rows"] = [(int(f_rows[j]), round(float(err[j]) * 100, 3),
+                                  int(f_rows[j]) - m0, int(f_rows[j]) in overlapped)
+                                 for j in np.argsort(-err)[:8]]
+        log(f"[{name}] the rows' error on the joint alignment, RMS by part (cm) "
+            f"{figures['row_rms_cm']}; the 8 largest (frame, cm, frames from the merge's, "
+            f"the frame overlapped the correction) {figures['worst_rows']}")
     log(f"[{name}] launches {launches}; fused VI frames {len(fused)}; the correction "
         f"{figures['correct_ms']} ms; frames overlapping it {len(under_lock)}, longest wall "
         f"{figures['max_wall_under_lock']} ms; the second session's longest frame wall "
@@ -2255,6 +2330,141 @@ def phase_vi_merge(dev, smi, branch, async_mapping=False):
     shapes["frame"] = at
     log(f"[{name}] phase 16 ({branch}{', async' if async_mapping else ''}) in "
         f"{time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, figures
+
+
+def phase_mono_vi_merge(dev, smi):
+    """Phase 17: two mono-inertial sessions over one place merged into one
+    Atlas map, at full width (f32): tests/torch_mono_vi_merge.py's sessions
+    (tests/torch_vi_merge.py's loop_sessions seen by the left camera; the
+    second session comes round to the first's arc after its own two-view
+    init and IMU init, before its VIBA2) through
+    System(sensor=IMU_MONOCULAR).track_monocular(..., imu=) with
+    change_dataset() between them and a vocabulary trained here. Gates: one
+    merge, inside the second session and after its IMU init, the map count
+    2 -> 1, OK at the end, nothing left in the young map, the mono-inertial
+    gates on one alignment of both sessions' rows and the sessions' Horn
+    scales within 5 %, 1 patch gather per frame and 4 pose LMs and a
+    pose_inertial_solve per fused VI frame; the first fused VI frame after
+    the merge holds both kernels against their plain versions. Then the
+    control, the same frames without a vocabulary: 2 maps at the end, OK.
+    Returns the launch counts, the kernel records and the run's figures
+    (with the control's)."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests"))
+    import torch_mono_vi_merge as mv
+    import torch_vi_merge as vm
+
+    torch.set_num_threads(2)
+    t_phase = time.perf_counter()
+    seq, sessions = mv.sessions(*N_MONO_VI_MERGE, height=H, width=W, fx=FX, fy=FY)
+    used = [s.start + i for s in sessions for i in range(s.n_frames)]
+    frames = render(seq, seq.n_frames, only=used)
+    voc = vm.vocabulary(seq, N_FEATURES, device=dev,
+                        frames=[frames[i] for i in used[::len(used) // vm.VOCAB_FRAMES]]
+                        [:vm.VOCAB_FRAMES])
+    log(f"[mono_vi_merge] rendered {len(used)} frames {W}x{H} ({seq.traj.kind} heave, "
+        f"{seq.traj.speed} m/s) and trained a vocabulary in {time.perf_counter() - t_phase:.1f}"
+        f" s; sessions: frames 0..{sessions[0].n_frames - 1}, then {sessions[1].start}.."
+        f"{sessions[1].start + sessions[1].n_frames - 1} from {sessions[1].t0} s")
+    launches, shapes, figures = _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, voc)
+    figures["control"] = _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, None)
+    log(f"[mono_vi_merge] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return launches, shapes, figures
+
+
+def _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, voc):
+    """One run of phase 17 on its frames: with the vocabulary, the merge's
+    gates and kernels (returns the launch counts, the kernel records and the
+    figures); without one, the control (returns its figures)."""
+    import torch
+
+    from tpuslam_torch.engine.config import TrackingConfig
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    with_vocab = voc is not None
+    name = "mono_vi_merge" + ("" if with_vocab else "_control")
+    n_a = sessions[0].n_frames
+    cfg = mv.config(N_FEATURES)
+    base = TrackingConfig()
+    cfg.tracking.motion_model_radius = base.motion_model_radius * W / 376.0
+    cfg.tracking.init_window = base.init_window * W / 376.0
+    with vi_merge_probe(gathers=1) as probe:
+        slam = probe.attach(mv.port_system(seq, voc, device=dev, cfg=cfg))
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        rec = mv.drive(slam, sessions, frames)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts_now()
+    m, tr, rows = slam.map, slam.tracker, probe.rows
+    traj = np.asarray(slam.trajectory_tum())
+    gates = mv.mono_gates(m, traj, sessions)
+    events = {s: [e[:2] for e in rec["events"] if (e[1] >= n_a) == bool(s)] for s in (0, 1)}
+    inits = [next((i for i, r in enumerate(rec["rows"]) if r[0] == s and r[4] == "OK"), None)
+             for s in (0, 1)]
+    log(f"[{name}] {len(rows)} frames in {wall:.1f} s; two-view inits on frames {inits}; IMU "
+        f"events (event, frame) of A "
+        f"{events[0]}, of B {events[1]}; scale refinements (frame, keyframes, first and last "
+        f"stamp) {[(f, len(c), a, b) for f, c, a, b in rec['refinements']]}; card {smi}")
+    log(f"[{name}] gates on {gates['rows']} rows: scaled ATE {gates['ate'] * 100:.3f} cm, Horn "
+        f"scale {gates['scale']:.5f}, |R[2,2]| {gates['r22']:.6f}, median KF velocity error "
+        f"{gates['vel']:.4f} m/s, finite {gates['finite']}, the sessions' Horn scales "
+        f"{gates['scales'][0]:.5f} / {gates['scales'][1]:.5f} ({gates['agree'] * 100:.2f} % "
+        f"apart); state {slam.get_tracking_state().name}, maps {m.map_ids()}")
+    if not with_vocab:
+        check(rec["merges"] == [] and m.map_ids() == [0, 1]
+              and slam.get_tracking_state().name == "OK", f"{name}: {m.map_ids()}")
+        return dict(maps=m.map_ids(), state=slam.get_tracking_state().name, gates=gates,
+                    events=[e[:2] for e in rec["events"]])
+    merges = rec["merges"]
+    tries = [(x["frame"], x["kf"], x["cand"], round(x["s"], 6), x["yaw_removed"])
+             for x in probe.tries]
+    log(f"[{name}] merges (frame, kf, cand, Sim3 scale, IMU flags, the mapper's stage, each "
+        f"map's Horn scale and keyframes just before the correction) {merges}; merges aborted "
+        f"before the young map's IMU init {rec['aborted']}; merge tries (frame, KFs, Sim3 scale "
+        f"before the gates, rotation removed by the yaw projection in rad) {tries}; the "
+        f"correction's parts {probe.parts}")
+    stage_table(name, GLOBAL_TIMER)
+    merge_frame = merges[0][0] if merges else len(rows)
+    walls = {}
+    for what, ms in (("before", probe.wall[n_a:merge_frame]),
+                     ("after", probe.wall[merge_frame + 1:])):
+        if ms:
+            walls[what] = (float(np.median(ms)), float(np.percentile(ms, 90)))
+            log(f"[{name}] B's frames {what} the merge: {len(ms)}, median {walls[what][0]:.2f} "
+                f"ms, p90 {walls[what][1]:.2f} ms, max {max(ms):.1f} ms")
+    fused = [r for r in rows if r["fused_vi"] and not r["host"]]
+    log(f"[{name}] launches {launches}; fused VI frames {len(fused)}; patch gathers per frame "
+        f"{sorted(set(r['patch'] for r in rows))}")
+    check(len(merges) == 1 and merges[0][0] >= n_a and merges[0][4][0],
+          f"{name}: merges {merges} (one, inside B, after B's IMU init)")
+    check(max(r["maps"] for r in rows) == 2 and rows[-1]["maps"] == 1,
+          f"{name}: map counts {sorted(set(r['maps'] for r in rows))}")
+    check(slam.get_tracking_state().name == "OK" and m.map_ids() == [0]
+          and m.current_map_id == 0 and m.imu_initialized, f"{name}: final state or maps")
+    pts = np.nonzero(m.mp_valid[: m.n_mp])[0]
+    check(all(m.kf_map_id[k] == 0 for p in pts for k in m.mp_obs[int(p)])
+          and all(m.kf_valid[k] and m.kf_map_id[k] == 0 for k in (tr.ref_kf, tr.last_kf)),
+          f"{name}: something is left in the young map")
+    check(gates["ok"], f"{name}: gates {gates}")
+    check(all(r["patch"] == 1 for r in rows),
+          f"{name}: patch gathers per frame {sorted(set(r['patch'] for r in rows))} != 1")
+    check(len(fused) >= 1 and all(r["pose"] == 4 and r["vi_solves"] == 1 for r in fused),
+          f"{name}: a fused VI frame did not make 4 pose-LM launches and one "
+          f"pose_inertial_solve")
+    check(len(probe.captured) == 1, f"{name}: no fused VI frame after the merge")
+    gathers, calls, at = probe.captured[0]
+    check(len(gathers) == 1 and len(calls) == 4, f"{name}: {len(gathers)} gathers, "
+          f"{len(calls)} pose-LM calls kept on frame {at}")
+    shapes = {"patch_gather": patch_compare(*gathers[0], f"{name} frame {at}"),
+              "pose_lm": fused_vi_lm_compare(calls, name, smi), "frame": at}
+    figures = dict(merge=merges[0][:4], map_scales=merges[0][6], stage=merges[0][5],
+                   aborted=rec["aborted"], events=[e[:2] for e in rec["events"]], gates=gates,
+                   walls=walls,
+                   yaw_removed=[x[4] for x in tries if x[4] is not None])
     return launches, shapes, figures
 
 
@@ -3198,6 +3408,12 @@ def main():
     log(f"[render] {N_SYSTEM} stereo frames {W}x{H} in {time.perf_counter() - t0:.1f} s (host, "
         f"{RENDER_WORKERS} processes)")
     records = phase_kernels(dev, seq)
+    # the phases in processes of their own start where the host has cores to
+    # spare, after phase 2's timings: 7 (b), 15 and 17 beside phases 3-8, 12 (b),
+    # 13, 14 and 16 beside 9-12; their results are taken at the end
+    children = {"mono_vi_async": PhaseInChild("phase_mono_vi_async", dev, smi),
+                "vi_schedule": PhaseInChild("phase_vi_schedule", dev, smi),
+                "mono_vi_merge": PhaseInChild("phase_mono_vi_merge", dev, smi)}
     by_path = {"fused_step": phase_slice(dev, seq, frames)}
     by_path.update(phase_system(dev, seq, frames, smi))
     cli_images, cli_b_images = frames[:N_CLI], frames[CLI_B_START:CLI_B_START + N_CLI]
@@ -3207,42 +3423,52 @@ def main():
     by_path["rgbd"] = phase_rgbd(dev, smi)
     vi_data = render_mono_vi()
     by_path["mono_vi"] = phase_mono_vi(dev, smi, vi_data)
-    by_path["mono_vi_async"] = phase_mono_vi(dev, smi, vi_data, async_mapping=True)
     del vi_data
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
-    # phase 15 runs in a process of its own beside phases 9 and 10
-    vi_schedule = PhaseInChild("phase_vi_schedule", dev, smi)
+    # phase 16's branches (b also with the mapper on its own thread), 12 (b), 13
+    # and 14
+    children.update({f"vi_merge_{b}": PhaseInChild("phase_vi_merge", dev, smi, b[0], b != b[0])
+                     for b in N_VI_MERGE})
+    children.update(stereo_vi_async=PhaseInChild("phase_stereo_vi", dev, smi, True),
+                    fisheye_stereo_vi=PhaseInChild("phase_fisheye_vi", dev, smi, True),
+                    fisheye_mono_vi=PhaseInChild("phase_fisheye_vi", dev, smi, False))
     try:
         cli_counts, cli_e_shapes = phase_cli(dev, smi, cli_images, cli_b_images)
         by_path.update(cli_counts)
         by_path["mono_loop_dist"] = phase_dist(dev, smi, loop_frames)
-    finally:
-        by_path["vi_schedule"], vi_schedule_shapes = vi_schedule.result()
-    # phase 16's branches (b also with the mapper on its own thread), phase 12
-    # (b) and phase 14 run in processes of their own beside phases 11-13
-    vi_merge = {b: PhaseInChild("phase_vi_merge", dev, smi, b[0], b != b[0])
-                for b in N_VI_MERGE}
-    stereo_vi_async = PhaseInChild("phase_stereo_vi", dev, smi, True)
-    fisheye_mono_vi = PhaseInChild("phase_fisheye_vi", dev, smi, False)
-    vi_merge_shapes, vi_merge_figures = {}, {}
-    try:
         tools, rgbd_shapes = phase_tools(dev, smi, seq, cli_images)
         by_path.update(tools)
         by_path["stereo_vi"], stereo_vi_shapes, stereo_vi_figures = phase_stereo_vi(dev, smi)
-        by_path["fisheye_stereo_vi"], shapes = phase_fisheye_vi(dev, smi, True)
-        fish_shapes.update(shapes)
     finally:
-        by_path["fisheye_mono_vi"], shapes = fisheye_mono_vi.result()
+        # every child is waited for before a failure is raised
+        got, failed = {}, []
+        for name, child in children.items():
+            try:
+                got[name] = child.result()
+            except AssertionError as exc:
+                failed.append(exc)
+        if failed:
+            raise failed[0]
+    by_path["mono_vi_async"] = got["mono_vi_async"]
+    by_path["vi_schedule"], vi_schedule_shapes = got["vi_schedule"]
+    by_path["mono_vi_merge"], mono_vi_shapes, mono_vi_figures = got["mono_vi_merge"]
+    control = mono_vi_figures.pop("control")
+    log(f"[mono_vi_merge] {mono_vi_figures}; the control without a vocabulary: maps "
+        f"{control['maps']}, {control['state']}, the sessions' Horn scales "
+        f"{control['gates']['scales']}, scaled ATE {control['gates']['ate'] * 100:.3f} cm")
+    for name in ("fisheye_stereo_vi", "fisheye_mono_vi"):
+        by_path[name], shapes = got[name]
         fish_shapes.update(shapes)
-        by_path["stereo_vi_async"], stereo_vi_async_shapes, figures = stereo_vi_async.result()
-        log(f"[stereo_vi_async] against phase 12's synchronous run: IMU init after frame "
-            f"{figures['init_frame']} (sync {stereo_vi_figures['init_frame']}); pose_inertial "
-            f"median {figures['pose_inertial_ms']} ms (sync "
-            f"{stereo_vi_figures['pose_inertial_ms']} ms); longest frame wall "
-            f"{figures['max_frame_ms']:.1f} ms (sync {stereo_vi_figures['max_frame_ms']:.1f} ms)")
-        for b, child in vi_merge.items():
-            by_path[f"vi_merge_{b}"], vi_merge_shapes[b], vi_merge_figures[b] = child.result()
-        log(f"[vi_merge_b_async] against branch b's synchronous run: {vi_merge_figures}")
+    by_path["stereo_vi_async"], stereo_vi_async_shapes, figures = got["stereo_vi_async"]
+    log(f"[stereo_vi_async] against phase 12's synchronous run: IMU init after frame "
+        f"{figures['init_frame']} (sync {stereo_vi_figures['init_frame']}); pose_inertial "
+        f"median {figures['pose_inertial_ms']} ms (sync "
+        f"{stereo_vi_figures['pose_inertial_ms']} ms); longest frame wall "
+        f"{figures['max_frame_ms']:.1f} ms (sync {stereo_vi_figures['max_frame_ms']:.1f} ms)")
+    vi_merge_shapes, vi_merge_figures = {}, {}
+    for b in N_VI_MERGE:
+        by_path[f"vi_merge_{b}"], vi_merge_shapes[b], vi_merge_figures[b] = got[f"vi_merge_{b}"]
+    log(f"[vi_merge_b_async] against branch b's synchronous run: {vi_merge_figures}")
     patch, lm = records
     patch["fisheye_shapes"] = fish_shapes
     patch["sensors_rgbd_shapes"] = rgbd_shapes.pop("patch_gather")
@@ -3254,13 +3480,16 @@ def main():
         side: dict(r, frame=stereo_vi_async_shapes["frame"])
         for side, r in stereo_vi_async_shapes["patch_gather"].items()}
     patch["cli_e_shapes"] = dict(cli_e_shapes["patch_gather"], frame=cli_e_shapes["frame"])
+    patch["mono_vi_merge_shapes"] = dict(mono_vi_shapes["patch_gather"],
+                                         frame=mono_vi_shapes["frame"])
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
                                 patch["vi_schedule_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()]
                                + [r["max_abs_err"] for r in patch["vi_merge_shapes"].values()]
                                + [r["max_abs_err"]
                                   for r in patch["stereo_vi_async_shapes"].values()]
-                               + [patch["cli_e_shapes"]["max_abs_err"]])
+                               + [patch["cli_e_shapes"]["max_abs_err"],
+                                  patch["mono_vi_merge_shapes"]["max_abs_err"]])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
     lm["stereo_vi_async_shapes"] = dict(stereo_vi_async_shapes["pose_lm"],
@@ -3269,10 +3498,12 @@ def main():
     lm["vi_merge_shapes"] = {b: dict(v["pose_lm"], frame=v["frame"])
                              for b, v in vi_merge_shapes.items()}
     lm["cli_e_shapes"] = dict(cli_e_shapes["pose_lm"], frame=cli_e_shapes["frame"])
+    lm["mono_vi_merge_shapes"] = dict(mono_vi_shapes["pose_lm"], frame=mono_vi_shapes["frame"])
     lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
                              lm["vi_schedule_shapes"].pop("max_abs_err"),
                              lm["stereo_vi_async_shapes"].pop("max_abs_err"),
-                             lm["cli_e_shapes"].pop("max_abs_err")]
+                             lm["cli_e_shapes"].pop("max_abs_err"),
+                             lm["mono_vi_merge_shapes"].pop("max_abs_err")]
                             + [v.pop("max_abs_err") for v in lm["vi_merge_shapes"].values()]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
@@ -3287,6 +3518,7 @@ def main():
                       "level0_step": N_FRAMES - 1,
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS,
+                      "mono_vi_merge": N_MONO_VI_MERGE[0] + N_MONO_VI_MERGE[2],
                       **{f"vi_merge_{b}": n[0] + n[2] for b, n in N_VI_MERGE.items()}}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())

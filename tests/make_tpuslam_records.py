@@ -55,6 +55,16 @@ def _vi_merge(tmp):
     return mod._run("tpuslam", voc), mod.record_inputs(seq, voc)
 
 
+def _mono_vi_merge(tmp):
+    import torch_mono_vi_merge
+    import torch_vi_merge
+
+    mod = _module("test_torch_mono_vi_merge")
+    seq, _ = torch_mono_vi_merge.sessions()
+    voc = torch_vi_merge.vocabulary_text(seq, os.path.join(tmp, "voc.txt"))
+    return mod._tpuslam_to_the_merge(voc), mod.record_inputs(seq, voc)
+
+
 def _tum_vi_cli(tmp):
     mod = _module("test_torch_tum_vi_cli")
     tree = mod.write_tree(os.path.join(tmp, "room1"))
@@ -72,6 +82,7 @@ RECORDS = {
     "atlas_merge": _atlas_merge,
     "async_merge": _async_merge,
     "vi_merge": _vi_merge,
+    "mono_vi_merge": _mono_vi_merge,
     "tum_vi_cli": _tum_vi_cli,
 }
 

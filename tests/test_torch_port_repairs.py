@@ -4,8 +4,9 @@
     bench_dist_torch.py, bench_torch.py, bench_sensors_torch.py,
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
     helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
-    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py)
-    and tests/torch_mono_merge.py and tests/torch_records.py,
+    tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py,
+    tests/torch_mono_vi_merge.py) and tests/torch_mono_merge.py and
+    tests/torch_records.py,
     imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
     matplotlib, PIL (a
     subprocess with all of them blocked imports them all and writes a
@@ -66,7 +67,8 @@ import bench_frontend_torch
 scripts = {}
 for script in ("scripts/make_synth_euroc_torch.py", "scripts/profile_system_torch.py",
                "scripts/profile_torch_step.py", "scripts/vi_prior_witness_torch.py",
-               "scripts/vi_f32_experiment_torch.py"):
+               "scripts/vi_f32_experiment_torch.py", "scripts/async_vi_merge_lags_torch.py",
+               "scripts/trace_async_vi_merge_torch.py"):
     spec = importlib.util.spec_from_file_location("script", script)
     scripts[script] = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(scripts[script])
@@ -77,7 +79,9 @@ import torch_vi_merge
 import torch_async
 import torch_mono_merge
 import torch_records
+import torch_mono_vi_merge
 assert len(torch_vi_merge.heave_sessions(2, 1, 2)[1]) == 2
+assert torch_mono_vi_merge.config().inertial.viba2_time == 1.0
 assert torch_mono_merge.config().orb.n_features == torch_mono_merge.N_FEATURES
 # the TUM-VI tree writer, on a 2-frame KB8 heave sequence at 64x64
 import tempfile
@@ -147,6 +151,13 @@ def test_mono_merge_helper_imports_only_the_port_and_numpy():
     beside the standard library and torch."""
     assert _import_roots("torch_mono_merge.py") == {"importlib", "os", "numpy", "torch",
                                                     "tpuslam_torch"}
+
+
+def test_mono_vi_merge_helper_imports_only_the_port_and_numpy():
+    """So does tests/torch_mono_vi_merge.py (phase 17's sessions), beside
+    torch and the stereo-inertial merge's helper."""
+    assert _import_roots("torch_mono_vi_merge.py") == {"numpy", "torch", "tpuslam_torch",
+                                                       "torch_vi_merge"}
 
 
 def test_records_helper_imports_only_the_standard_library_and_numpy():

@@ -8,8 +8,8 @@ the port's.
   * `paced(slam)`: tests/test_async_mapping.py's bounded back-pressure
     before a frame (at most 2 s waiting for the queue to fall to 2
     keyframes), as a real deployment runs at the camera's frame period.
-  * `lagged(slam)`: the worker held, and run on each keyframe LAG frames
-    after the frame that made it, inside that frame's host-path extraction:
+  * `lagged(slam, lag=LAG)`: the worker held, and run on each keyframe lag
+    frames after the frame that made it, inside that frame's host-path extraction:
     after the tracker chose its path, before it takes the map lock, as a
     busy mapping thread lands its work; anything that waits for the worker
     (AsyncMapper.flush) lets it run, and the first frame after
@@ -39,9 +39,9 @@ def serialized(slam):
     return slam
 
 
-def lagged(slam):
+def lagged(slam, lag=LAG):
     """Wrap a stereo System (see the module's docstring): a keyframe made by
-    call k is mapped inside call k + LAG's host extraction, or after that
+    call k is mapped inside call k + lag's host extraction, or after that
     call where it extracted on the device (the call after, where that is the
     first after change_dataset()); shutdown() releases the worker."""
     gate, due, calls = threading.Event(), [None], [0]
@@ -74,7 +74,7 @@ def lagged(slam):
         out = real_track(*a, **kw)
         run_worker_if_due()
         if slam.map.n_kf > n_kf and due[0] is None:
-            due[0] = calls[0] + LAG
+            due[0] = calls[0] + lag
         calls[0] += 1
         return out
 

@@ -123,6 +123,17 @@ def _session_of(sessions, t):
     return sessions[0]
 
 
+def row_errors(traj, sessions):
+    """Each trajectory row's error (m) on joint_gates' unscaled alignment of
+    all rows to both sessions' ground truth: (the rows' stamps, errors)."""
+    traj = np.asarray(traj, np.float64)
+    t_gt = np.concatenate([s.timestamps() for s in sessions])
+    gt = np.asarray([-R.T @ t for R, t in (s.gt_pose_cw(x) for s in sessions
+                                           for x in s.timestamps())])
+    i_e, i_g = associate(traj[:, 0], t_gt)
+    return traj[i_e, 0], horn_align(traj[i_e, 1:4], gt[i_g], with_scale=False)[3]
+
+
 def joint_gates(m, traj, sessions):
     """The merged run's numbers on one alignment of every trajectory row
     (t, x, y, z, ...) to the ground truth of both sessions: unscaled ATE

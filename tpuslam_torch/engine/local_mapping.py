@@ -71,9 +71,6 @@ class LocalMapper:
         self.inv_sigma2 = 1.0 / self.sf ** 2
         self.imu_calib = imu_calib
         self.mono = bf <= 0 if mono is None else mono
-        self.imu_init_time: float | None = None
-        self.viba_stage = 0  # 0: before init, 1: init done, 2: VIBA1, 3: VIBA2
-        self._last_refine = -1e9
         # BA interruption hook (ref: mbAbortBA LocalMapping.cc:103,283); the
         # async mapper points it at its queue's non-empty check
         self.abort_check = None
@@ -81,6 +78,35 @@ class LocalMapper:
         # System::SaveDebugData, System.cc:836-889): event, t, n_kfs, bg, ba
         self.debug_events: list[dict] = []
         self._devk = None
+
+    # the IMU schedule (the time of the IMU init, the VIBA stage, the last
+    # scale refinement) is the current map's (map/store.py): tpuslam keeps
+    # it on the mapper, so a young map after change_dataset() ran on with
+    # the old map's last refinement, and a merged map with the young map's
+    # stage, its scale refinements rescaling the old map's keyframes too
+    @property
+    def imu_init_time(self):
+        return self.map.imu_init_time
+
+    @imu_init_time.setter
+    def imu_init_time(self, value):
+        self.map.imu_init_time = value
+
+    @property
+    def viba_stage(self):
+        return self.map.viba_stage
+
+    @viba_stage.setter
+    def viba_stage(self, value):
+        self.map.viba_stage = value
+
+    @property
+    def _last_refine(self):
+        return self.map.last_refine
+
+    @_last_refine.setter
+    def _last_refine(self, value):
+        self.map.last_refine = value
 
     @property
     def devk(self):
@@ -189,7 +215,7 @@ class LocalMapper:
             # change to the poses-fixed refinement, so full BA runs first
             self._last_refine = t_now
             self._full_inertial_ba(icfg.prior_g2, icfg.prior_a2)
-            if self.mono:
+            if self.mono and not m.merged:
                 run_imu_init(m, self.imu_calib, mono=True, opt_bias=False, device=self.device)
 
     def _local_inertial_ba(self, kf: int, hold=_no_lock):

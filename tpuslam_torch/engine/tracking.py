@@ -35,7 +35,9 @@ pose-inertial solve on its associations; before IMU init, and whenever
 the fused step cannot run, frames take the host path. tpuslam's guards
 are kept: a bad-IMU flag or a backwards timestamp resets the active map,
 a sensor gap over 1 s opens a new map or resets, and stereo-inertial
-initialization waits for accelerometer excitation.
+initialization waits for accelerometer excitation. Once the IMU is
+initialized, a frame that fails tracking rides the IMU prediction, the
+first failing one too (tpuslam logs that one's rejected visual pose).
 """
 
 from __future__ import annotations
@@ -970,6 +972,11 @@ class Tracker:
             elif (self.state == State.RECENTLY_LOST
                   and frame.time - self.lost_since > cfg.time_recently_lost):
                 self.state = State.LOST
+            if pred is not None:
+                # with an initialized IMU the frame that fails rides the IMU
+                # prediction, the first one too (tpuslam keeps that one's
+                # rejected visual pose, which lands in the trajectory)
+                frame.R, frame.t, frame.v = pred
             self._keep_last_pose(frame)
             if self.state == State.LOST:
                 self._handle_lost()
