@@ -3,13 +3,15 @@
     python3 chip_smoke.py
 
 Drives the port's main paths at full size: 752x480, 1024 ORB features, 8
-levels at scale 1.2, stereo, monocular with loop closing, RGB-D,
+levels at scale 1.2 (the dataset routes of phase 18 at their published
+sizes), stereo, monocular with loop closing, RGB-D,
 mono-inertial (sync and async), fisheye stereo, the dataset CLI, the
 distributed BA, the measuring tools, stereo-inertial, TUM-VI's fisheye
 stereo-inertial and mono-inertial routes, the inertial mapper's whole
 IMU schedule, the multi-session stereo-inertial merge, and the mapper on
 its own thread for stereo-inertial SLAM and across both merges, the
-multi-session monocular merge and the multi-session mono-inertial merge.
+multi-session monocular merge, the multi-session mono-inertial merge, and
+the dataset CLI on KITTI (stereo and mono), TUM RGB-D and the fork's CSV.
 Phases, each raising on failure:
   0. print the card (nvidia-smi name and power limit) and versions;
   1. build the CUDA kernels from tpuslam_torch/csrc (one nvcc per source,
@@ -44,8 +46,9 @@ Phases, each raising on failure:
      of both kernels;
   5. System.track_monocular with a vocabulary (trained here with the
      port's train_vocabulary on frames of the same room) over the loop
-     sequence of tests/test_e2e_loop.py at 752x480, its 92 frames, with
-     frames 20..24 on the host tracking path: it must end OK, close at
+     sequence of tests/test_e2e_loop.py at 752x480, 104 frames (its 92 and
+     1.5 s more of the second lap), with frames 20..24 on the host
+     tracking path: it must end OK, close at
      least one loop, end with one map, keep a scaled ATE under 5 % of the
      circumference, have no mapper errors, launch both kernels at least
      1 / 4 times per fused dispatch and the pose LM on the host path; a
@@ -74,8 +77,8 @@ Phases, each raising on failure:
      tpuslam's async gates (IMU initialized, OK, scaled ATE under 8 cm),
      no worker errors, at least one async handshake
      (Tracker._sync_imu_from_map) that rebased the last frame, both
-     kernels launched; (b) renders the frames anew and runs in a process
-     of its own (PhaseInChild) beside phases 3-8;
+     kernels launched; 7 and (b) each render the frames and run in a
+     process of their own (PhaseInChild) beside phases 3-8;
   8. fisheye stereo: System(camera2=, Tlr=).track_stereo at TUM-VI's
      512x512 over 20 frames at 20 fps (0.5 m/s) rendered by the port's
      Kannala-Brandt renderer from seed 0, the rig of
@@ -280,8 +283,8 @@ Phases, each raising on failure:
      mapping thread) under phase 7 (b)'s bounded
      back-pressure, with (b)'s gates and no worker error; the merge's frame,
      the correction's ms and the longest frame wall of the second session
-     while the correction holds the map lock are printed against (b)'s.
-     Every branch also prints which rows carry its joint ATE: the RMS of
+     while the correction holds the map lock are printed against (b)'s;
+     this run is started after phase 2, beside phases 3-8. Every branch also prints which rows carry its joint ATE: the RMS of
      the first session's rows, of the second's before the merge and from
      it on, and the 8 largest row errors with their frame, how many frames
      from the merge's and whether the frame overlapped the correction;
@@ -307,9 +310,37 @@ Phases, each raising on failure:
      each session, the merges aborted, the rotation the yaw projection
      removed, each map's Horn scale just before the correction, the weld's
      size, the stage table and the second session's frame ms before and
-     after the merge are printed. Its control, the same frames without a
-     vocabulary: 2 maps, OK, run after it in the same process of its own,
-     beside phases 3-10 and 15.
+     after the merge are printed. Its control, the same sessions without a
+     vocabulary cut to the frames before each session's IMU init (A's
+     first 24, B's first 8): 2 maps, OK, no merge, run after it in the same
+     process of its own, beside phases 3-10 and 15;
+ 18. the dataset CLI's other formats at their published sizes, each tree
+     rendered here, written by scripts/make_synth_euroc_torch.py under a
+     temporary directory of build/ and run through run.main on the card
+     (tests/torch_datasets.py's sequences and gates): (a) KITTI00-02
+     stereo: 1241x376, fx 718.856, bf 386.1448, 2000 features, 40 frames
+     at 10 fps through the room at 1 m/s, `--format kitti --kf-output`: OK,
+     one map, one 12-value KITTI row per frame, an unscaled ATE under 5 cm
+     and a Horn scale within 3 % of 1 from those rows, 2 patch gathers per
+     frame and 4 pose LMs per fused frame; (b) the same sequence's image_0
+     with KITTI00-02's monocular file over its first 20 frames (1.9 m; the
+     mono gate was set on a 1.4 m path): the two-view init's frame printed,
+     tests/test_e2e_mono.py's gates (OK, >= 3 keyframes, > 100 map points,
+     >= 8 rows, scaled ATE under 0.10); (c) TUM3 RGB-D: 640x480, 40 frames
+     at 30 fps, 0.5 m/s, colour PNGs, uint16 depth at 5000 per metre
+     (DepthMapFactor applied once), epoch stamps, ground truth at 100 Hz,
+     `--eval`: OK, the report's ate_rmse under 5 cm, the rows' Horn scale
+     within 3 % of 1, a pose-LM launch on every frame but the first; (d)
+     phase 9's 752x480 left frames as the fork's CSV (seq.csv with ns
+     stamps from EuRoC MH01's first): the mono gates, and the rows' stamps
+     the CSV's seconds. On (a)'s first fused frame (2 patch gathers, 4
+     pose-LM calls at N = 2000, the first launch above 48 KB of shared
+     memory) and (c)'s first host frame (its patch gather and the host
+     tracker's pose solves) both kernels are held against their plain
+     versions (the gather bitwise, the pose LM with phase 2's tolerances
+     and every inlier flag equal) and timed as in phase 2 beside their
+     bounds. Runs in a process of its own, started after phase 2 beside
+     phases 3-10.
 Trajectory errors use tpuslam_torch.eval.ate (Horn alignment).
 The last lines are the kernels' JSON record (with launches by path and
 per frame, phase 10's mono loop as mono_loop_dist, phase 11's paths as
@@ -326,7 +357,9 @@ with its first fused VI frame's kernel inputs as stereo_vi_async_shapes,
 phase 9's run D as cli_d, phase 16 (b) async as vi_merge_b_async, phase
 9's run E as cli_e with the kernel inputs of its first fused frame after the
 merge as cli_e_shapes, phase 17 as mono_vi_merge with the kernel inputs of
-its first fused VI frame after the merge as mono_vi_merge_shapes), the
+its first fused VI frame after the merge as mono_vi_merge_shapes, phase 18
+as kitti_stereo, kitti_mono, tum_rgbd and csv_mono with the kernel inputs of
+(a)'s first fused frame and (c)'s first host frame as datasets_shapes), the
 nvidia-smi line
 and {"ok": true, "device": {...}}. Needs one CUDA card; fails without one.
 """
@@ -370,7 +403,12 @@ OPS_SOLVE = 460
 N_SYSTEM = 60          # phase 4: frames per System run
 HOST_PATH = range(40, 50)  # phase 4 (a): frames tracked by the host path
 WARMUP = 5             # phases 4-6: frames left out of the per-frame times
-N_LOOP = 92            # phase 5: the loop sequence of tests/test_e2e_loop.py
+# phase 5: the loop sequence of tests/test_e2e_loop.py, 12 frames past its 92. The
+# lap ends on frame 80.4; on an H100 the loop is first detected on frame 84-86 and
+# closes two frames later (three keyframes in a row confirm it), so over 92 frames a
+# detection broken once has no keyframes left to be confirmed on
+N_LOOP = 104
+LOOP_RELOC_FRAME = 132  # phase 5: the unseen second-lap frame that must relocalize
 LOOP_HOST_PATH = range(20, 25)  # phase 5: frames tracked by the host path
 CIRCUMFERENCE = 2 * np.pi * 1.6
 N_RGBD = 40            # phase 6
@@ -418,6 +456,16 @@ N_VI_MERGE = {"a": (84, 6, 114), "b": (33, 45, 68), "b_async": (33, 45, 74)}
 # 88) is recognised after its VIBA1 and before its VIBA2 (from 88: after its VIBA2;
 # from 92 or 94 its two-view init waits until its frame 30 on an H100)
 N_MONO_VI_MERGE = (41, 90, 26)
+# phase 17's control without a vocabulary: each session cut to the frames
+# before its IMU init (A's two-view init on its frame 16 and IMU init on its
+# 25-27, B's on its 3 and 10 on the H100), so that it runs no fused VI
+# frame and no IMU stage
+N_MONO_VI_CONTROL = (24, 8)
+N_KITTI, KITTI_SPEED = 40, 1.0   # phase 18 (a): KITTI00-02 frames at 10 fps
+# phase 18 (b): the frames of the mono route, 1.9 m at 1 m/s (tests/test_e2e_mono.py's
+# scaled-ATE gate was set on a 1.4 m path; over all 40 frames, 3.84 m, it read 18.2 cm)
+N_KITTI_MONO = 20
+N_TUM = 40                       # phase 18 (c): TUM3 frames at 30 fps, 0.5 m/s
 RENDER_WORKERS = 7     # host processes that render a phase's frames (the card host has 8 cores)
 
 
@@ -1136,12 +1184,20 @@ def phase_mono_loop(dev, smi, frames, dist=False):
     GLOBAL_TIMER.samples.clear()
     dist_ba.counter.__init__()
     reset_counts()
-    wall = []
+    wall, timeline, seen = [], [], None
     for i, t in enumerate(seq.timestamps()):
         slam.tracker.fused_enabled = i not in LOOP_HOST_PATH
         t1 = time.perf_counter()
         slam.track_monocular(frames[i], t)
         wall.append((time.perf_counter() - t1) * 1e3)
+        # the loop closer's common region as this frame left it: (frame,
+        # candidate keyframe, confirmations, misses in a row, loops closed)
+        p = slam.loop_closer.pending
+        now = (None if p is None else (p["cand"], p["count"], p["not_found"]),
+               slam.loop_closer.n_loops_closed)
+        if now != seen:
+            timeline.append((i,) + (now[0] or (None, 0, 0)) + (now[1],))
+            seen = now
     slam.shutdown()
     torch.cuda.synchronize()
     launches = counts_now()
@@ -1162,6 +1218,8 @@ def phase_mono_loop(dev, smi, frames, dist=False):
     stage_table(tag, GLOBAL_TIMER)
     slow = int(np.argmax(wall))
     log(f"[{tag}] slowest frame {slow}: {wall[slow]:.1f} ms")
+    log(f"[{tag}] the loop closer's common region by frame (frame, candidate keyframe, "
+        f"confirmations, misses in a row, loops closed): {timeline}")
     log(f"[{tag}] launches {launches}; fused dispatches {n_fused}; pose LM on the host path "
         f"{launches['pose_lm'] - 4 * n_fused}")
     check(slam.get_tracking_state() == State.OK, f"{tag}: final state not OK")
@@ -1175,12 +1233,12 @@ def phase_mono_loop(dev, smi, frames, dist=False):
     check(launches["pose_lm"] > 4 * n_fused, f"{tag}: the host path ran no pose LM")
     check(dist_ba.counter.ba > 0 if dist else dist_ba.counter.ba == 0,
           f"{tag}: {dist_ba.counter.ba} distributed GBA solves")
-    # a second-lap frame the System never saw (5 s past the run's end)
+    # a second-lap frame the System never saw (3.5 s past the run's end)
     # relocalizes by BoW + PnP + pose LM on a keyframe of the first lap;
     # mono map units are arbitrary, so its pose is held against ground
     # truth after the run's trajectory is Sim3-aligned onto it
     lap_s = CIRCUMFERENCE / seq.traj.speed
-    i = N_LOOP + 40
+    i = LOOP_RELOC_FRAME
     t = i / seq.fps
     frame = Frame(fe.process(u8(seq.frame(i))), t, 10_000 + i)
     ok = slam.tracker._relocalize_bow(frame)
@@ -1523,13 +1581,13 @@ def phase_mono_vi(dev, smi, data, async_mapping=False):
     return launches
 
 
-def phase_mono_vi_async(dev, smi):
-    """Phase 7 (b) in a process of its own: phase 7's frames rendered anew,
-    the run with the mapper on its own thread."""
+def phase_mono_vi_alone(dev, smi, async_mapping):
+    """Phase 7, or 7 (b) with the mapper on its own thread, in a process of
+    its own: phase 7's frames rendered there."""
     import torch
 
     torch.set_num_threads(2)
-    return phase_mono_vi(dev, smi, render_mono_vi(), async_mapping=True)
+    return phase_mono_vi(dev, smi, render_mono_vi(), async_mapping=async_mapping)
 
 
 def redecided_frames(rows, events, name):
@@ -1545,46 +1603,52 @@ def redecided_frames(rows, events, name):
     return out
 
 
-def fused_vi_lm_compare(calls, what, smi, frame="fused VI frame"):
+def fused_vi_lm_compare(calls, what, smi, frame="fused VI frame", host=False):
     """The pose LM on the inputs a path's first fused VI frame (or the
     `frame` named) gave it (its 4 calls, (args, kwargs) each): every call
     held against the plain version (pose_lm_compare), the last (4 rounds)
-    timed as in phase 2 beside its bound. Returns the records by call, with
-    max_abs_err."""
+    timed as in phase 2 beside its bound. host: the host tracker's solves
+    of a host frame, through pose_optimize_best (the f64 cast in the
+    host-inclusive time, as phase 2's host shapes). Returns the records by
+    call, with max_abs_err."""
     import torch
 
     from tpuslam_torch.solve import pose_opt_cuda
+    from tpuslam_torch.solve.pose_opt_dispatch import pose_optimize_best
 
+    solve = pose_optimize_best if host else pose_opt_cuda.pose_optimize_fused
     shapes, worst = {}, 0.0
     for j, (a, kw) in enumerate(calls):
-        eR, et, agree, _, rounds = pose_lm_compare(pose_opt_cuda.pose_optimize_fused, a,
-                                                   f"{what} call {j}", kw)
+        eR, et, agree, _, rounds = pose_lm_compare(solve, a, f"{what} call {j}", kw)
         worst = max(worst, eR, et)
         st = a[5] & a[6]
         n_valid = int(a[6].sum())
         valid_by = {"mono": n_valid - int(st.sum()), "stereo": int(st.sum())}
-        shapes[f"call_{j}"] = dict(n=int(a[2].shape[0]), valid=valid_by, n_rounds=kw["n_rounds"],
-                                   dR=eR, dt=et, agreement=agree,
-                                   steps=[r["steps"] for r in rounds],
+        shapes[f"call_{j}"] = dict(n=int(a[2].shape[0]), valid=valid_by,
+                                   n_rounds=kw.get("n_rounds", 4), dR=eR, dt=et,
+                                   agreement=agree, steps=[r["steps"] for r in rounds],
                                    in_use=[(r["mono"], r["stereo"]) for r in rounds],
                                    flops=pose_lm_ops(rounds, valid_by))
         log(f"[{what}] pose LM call {j} of the first {frame} (N={a[2].shape[0]}, "
-            f"valid {valid_by}, {kw['n_rounds']} rounds): |dR| {eR:.3g} |dt| {et:.3g} inlier "
-            f"agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
+            f"valid {valid_by}, {shapes[f'call_{j}']['n_rounds']} rounds): |dR| {eR:.3g} |dt| "
+            f"{et:.3g} inlier agreement {agree:.4f}, LM steps {shapes[f'call_{j}']['steps']}")
     a, kw = calls[-1]
     args32 = [x.to(torch.float32).contiguous() for x in a[:5]] + list(a[5:])
-    fused_call = lambda: pose_opt_cuda.pose_optimize_fused(*args32, **kw)  # noqa: E731
+    kw32 = {k: v for k, v in kw.items() if k == "n_rounds"} if host else kw
+    fused_call = lambda: pose_opt_cuda.pose_optimize_fused(*args32, **kw32)  # noqa: E731
     host_ms, dev_ms, plain_ms = pose_lm_times(
-        fused_call, fused_call, lambda: pose_opt_cuda.pose_optimize_plain(*args32, **kw))
+        (lambda: solve(*a, **kw)) if host else fused_call, fused_call,
+        lambda: pose_opt_cuda.pose_optimize_plain(*args32, **kw32))
     rec = shapes[f"call_{len(calls) - 1}"]
     n_bytes = pose_lm_bytes(rec["n"])
     b_ms, b_by, b_res = bound(n_bytes, rec["flops"])
     rec.update(ms=host_ms, device_ms=dev_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                bytes=n_bytes)
     log(f"[{what}] pose LM on the first {frame}'s last call: kernel device "
-        f"{dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms; plain {plain_ms:.4f} ms; bound "
-        f"{b_ms:.7f} ms ({rec['flops']} f32 operations, {n_bytes} bytes: {b_res}); the bound "
-        f"is {b_ms / dev_ms:.5f} of the device time; card {smi}")
+        f"{dev_ms:.5f} ms, host-inclusive {host_ms:.5f} ms{' (f64 cast included)' if host else ''}"
+        f"; plain {plain_ms:.4f} ms; bound {b_ms:.7f} ms ({rec['flops']} f32 operations, "
+        f"{n_bytes} bytes: {b_res}); the bound is {b_ms / dev_ms:.5f} of the device time; card "
+        f"{smi}")
     return dict(shapes, max_abs_err=worst)
 
 
@@ -2369,7 +2433,11 @@ def phase_mono_vi_merge(dev, smi):
         f" s; sessions: frames 0..{sessions[0].n_frames - 1}, then {sessions[1].start}.."
         f"{sessions[1].start + sessions[1].n_frames - 1} from {sessions[1].t0} s")
     launches, shapes, figures = _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, voc)
-    figures["control"] = _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, None)
+    control = [type(x)(seq, x.start, n, x.t0) for x, n in zip(sessions, N_MONO_VI_CONTROL)]
+    t0 = time.perf_counter()
+    figures["control"] = _mono_vi_merge_run(dev, smi, mv, seq, control, frames, None)
+    log(f"[mono_vi_merge] the control over A's frames 0..{N_MONO_VI_CONTROL[0] - 1} and B's "
+        f"first {N_MONO_VI_CONTROL[1]} in {time.perf_counter() - t0:.1f} s")
     log(f"[mono_vi_merge] phase 17 in {time.perf_counter() - t_phase:.1f} s")
     return launches, shapes, figures
 
@@ -2401,7 +2469,6 @@ def _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, voc):
         launches = counts_now()
     m, tr, rows = slam.map, slam.tracker, probe.rows
     traj = np.asarray(slam.trajectory_tum())
-    gates = mv.mono_gates(m, traj, sessions)
     events = {s: [e[:2] for e in rec["events"] if (e[1] >= n_a) == bool(s)] for s in (0, 1)}
     inits = [next((i for i, r in enumerate(rec["rows"]) if r[0] == s and r[4] == "OK"), None)
              for s in (0, 1)]
@@ -2409,16 +2476,17 @@ def _mono_vi_merge_run(dev, smi, mv, seq, sessions, frames, voc):
         f"events (event, frame) of A "
         f"{events[0]}, of B {events[1]}; scale refinements (frame, keyframes, first and last "
         f"stamp) {[(f, len(c), a, b) for f, c, a, b in rec['refinements']]}; card {smi}")
+    if not with_vocab:
+        check(rec["merges"] == [] and m.map_ids() == [0, 1]
+              and slam.get_tracking_state().name == "OK", f"{name}: {m.map_ids()}")
+        return dict(maps=m.map_ids(), state=slam.get_tracking_state().name, rows=len(traj),
+                    inits=inits, events=[e[:2] for e in rec["events"]])
+    gates = mv.mono_gates(m, traj, sessions)
     log(f"[{name}] gates on {gates['rows']} rows: scaled ATE {gates['ate'] * 100:.3f} cm, Horn "
         f"scale {gates['scale']:.5f}, |R[2,2]| {gates['r22']:.6f}, median KF velocity error "
         f"{gates['vel']:.4f} m/s, finite {gates['finite']}, the sessions' Horn scales "
         f"{gates['scales'][0]:.5f} / {gates['scales'][1]:.5f} ({gates['agree'] * 100:.2f} % "
         f"apart); state {slam.get_tracking_state().name}, maps {m.map_ids()}")
-    if not with_vocab:
-        check(rec["merges"] == [] and m.map_ids() == [0, 1]
-              and slam.get_tracking_state().name == "OK", f"{name}: {m.map_ids()}")
-        return dict(maps=m.map_ids(), state=slam.get_tracking_state().name, gates=gates,
-                    events=[e[:2] for e in rec["events"]])
     merges = rec["merges"]
     tries = [(x["frame"], x["kf"], x["cand"], round(x["s"], 6), x["yaw_removed"])
              for x in probe.tries]
@@ -3360,6 +3428,289 @@ def phase_tools(dev, smi, seq, frames):
     return counts, shapes
 
 
+class dataset_probe:
+    """Phase 18's instruments: per-frame rows of run.main's System (state,
+    patch-gather and pose-LM launches, whether the frame took the fused step
+    or the host path, host wall ms) and the kernel inputs of the first frame
+    of the kind asked for: "fused" (its patch gathers and its 4 pose-LM
+    calls) or "host" (its patch gather and the host tracker's pose solves);
+    None keeps none."""
+
+    def __init__(self, want, gathers=1):
+        self.want, self.gathers = want, gathers
+
+    def __enter__(self):
+        import torch
+
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import track_device, tracking
+        from tpuslam_torch.ops import orb
+        from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+        self.rows, self.captured, self.systems = [], [], []
+        probe, frame_gathers, frame_lm = self, [], []
+        self.saved = dict(gather=orb.extract_patches_levels, fused=track_device.pose_optimize_fused,
+                          host=tracking.pose_optimize, System=run.System)
+        sv = self.saved
+
+        def clone(a):
+            return [x.clone() if torch.is_tensor(x) else x for x in a]
+
+        def gather(levels, yx, budgets, size):
+            if not probe.captured and probe.want is not None:
+                frame_gathers.append(([lv.clone() for lv in levels], yx.clone(), list(budgets),
+                                      size))
+            return sv["gather"](levels, yx, budgets, size)
+
+        def fused(*a, **kw):
+            if not probe.captured and probe.want == "fused":
+                frame_lm.append((clone(a), dict(kw)))
+            return sv["fused"](*a, **kw)
+
+        def host(*a, **kw):
+            if not probe.captured and probe.want == "host":
+                frame_lm.append((clone(a), dict(kw)))
+            return sv["host"](*a, **kw)
+
+        def stages():
+            return [len(GLOBAL_TIMER.samples.get(n, [])) for n in ("track_fused", "track")]
+
+        class Probed(sv["System"]):
+            def __init__(self, *a, **kw):
+                super().__init__(*a, **kw)
+                probe.systems.append(self)
+                real = self.tracker.track
+
+                def track(*a, **kw):
+                    before, st = counts_now(), stages()
+                    frame_gathers.clear()
+                    frame_lm.clear()
+                    t0 = time.perf_counter()
+                    out = real(*a, **kw)
+                    wall = (time.perf_counter() - t0) * 1e3
+                    after, st2 = counts_now(), stages()
+                    row = dict(state=self.get_tracking_state().name,
+                               patch=after["patch_gather"] - before["patch_gather"],
+                               pose=after["pose_lm"] - before["pose_lm"],
+                               fused=st2[0] > st[0], host=st2[1] > st[1], ms=wall)
+                    probe.rows.append(row)
+                    kind_ok = {"fused": row["fused"] and not row["host"] and len(frame_lm) == 4,
+                               "host": row["host"] and bool(frame_lm)}.get(probe.want, False)
+                    if (not probe.captured and kind_ok
+                            and len(frame_gathers) == probe.gathers):
+                        probe.captured.append((list(frame_gathers), list(frame_lm),
+                                               len(probe.rows) - 1))
+                    return out
+
+                self.tracker.track = track
+
+        orb.extract_patches_levels = gather
+        track_device.pose_optimize_fused, tracking.pose_optimize = fused, host
+        run.System = Probed
+        return self
+
+    def __exit__(self, *exc):
+        from tpuslam_torch import run
+        from tpuslam_torch.engine import track_device, tracking
+        from tpuslam_torch.ops import orb
+
+        sv = self.saved
+        orb.extract_patches_levels = sv["gather"]
+        track_device.pose_optimize_fused, tracking.pose_optimize = sv["fused"], sv["host"]
+        run.System = sv["System"]
+
+
+def _dataset_route(name, argv, probe, smi):
+    """run.main(argv) under `probe`: (report, the probe, wall s, launches);
+    prints the report, the wall, the frame times and the launches."""
+    import torch
+
+    from tpuslam_torch import run
+    from tpuslam_torch.utils.timing import GLOBAL_TIMER
+
+    with probe:
+        GLOBAL_TIMER.samples.clear()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rep = run.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = counts_now()
+    ms = [r["ms"] for r in probe.rows[WARMUP:]]
+    log(f"[datasets {name}] python -m tpuslam_torch.run {' '.join(argv)}")
+    log(f"[datasets {name}] report {json.dumps(rep)}; run.main wall {wall:.1f} s; frames "
+        f"{WARMUP}.. median {np.median(ms):.2f} ms, p90 {np.percentile(ms, 90):.2f} ms, max "
+        f"{max(ms):.1f} ms (host wall of the tracker, the PNG decode outside it); launches "
+        f"{launches}; fused frames {sum(r['fused'] and not r['host'] for r in probe.rows)}, host "
+        f"frames {sum(r['host'] for r in probe.rows)}; card {smi}")
+    stage_table(f"datasets {name}", GLOBAL_TIMER)
+    return rep, wall, launches
+
+
+def _mono_route_gates(name, rep, rows, stamps, gt_of):
+    """tests/test_e2e_mono.py's gates on a monocular route's TUM rows; the
+    first row is the two-view init's frame. Returns the figures."""
+    from tpuslam_torch.eval.ate import ate_rmse
+
+    first = int(np.argmin(np.abs(stamps - rows[0, 0])))
+    gt = np.array([gt_of(t) for t in rows[:, 0]])
+    ate, scale = ate_rmse(rows[:, 1:4], gt, with_scale=True)
+    log(f"[datasets {name}] two-view init on frame {first}; {len(rows)} rows; scaled ATE "
+        f"{ate * 100:.3f} cm (Horn scale {scale:.5f}) over a {np.linalg.norm(gt[-1] - gt[0]):.2f} "
+        f"m path")
+    check(rep["state"] == "OK" and rep["keyframes"] >= 3 and rep["map_points"] > 100
+          and len(rows) >= 8 and ate < MONO_ATE_GATE,
+          f"datasets {name}: report {rep}, rows {len(rows)}, scaled ATE {ate}")
+    return dict(init_frame=first, rows=len(rows), ate=float(ate))
+
+
+def phase_datasets(dev, smi, csv_images):
+    """Phase 18: the dataset CLI's KITTI, TUM RGB-D and CSV routes at their
+    published sizes: trees rendered here and written by
+    scripts/make_synth_euroc_torch.py under a temporary directory, each run
+    through run.main on the card. (a) KITTI00-02 stereo, (b) its image_0
+    monocular, (c) TUM3 RGB-D, (d) phase 9's left frames as the fork's CSV.
+    Both kernels are held against their plain versions on (a)'s first fused
+    frame and (c)'s first host frame, and timed. Runs in a process of its
+    own. Returns the launch counts by route, the kernel records and the
+    figures."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import torch_datasets as TD
+    from tpuslam_torch import _build
+    from tpuslam_torch.io import datasets
+    from tpuslam_torch.io.synthetic import SyntheticSequence
+
+    torch.set_num_threads(2)
+    t_phase = time.perf_counter()
+    script = TD.script()
+    root = tempfile.mkdtemp(prefix="datasets_", dir=_build.BUILD_DIR.parent)
+    counts, shapes, figures = {}, {}, {}
+    try:
+        kitti = TD.kitti_sequence(N_KITTI, speed=KITTI_SPEED)
+        tum = TD.tum_sequence(N_TUM)
+        t0 = time.perf_counter()
+        kitti_frames = render(kitti, N_KITTI, "stereo")
+        tum_frames = render(tum, N_TUM, "rgbd")
+        log(f"[datasets] rendered {N_KITTI} stereo pairs {kitti.width}x{kitti.height} (KITTI00-02, "
+            f"{KITTI_SPEED} m/s) and {N_TUM} RGB-D frames {tum.width}x{tum.height} (TUM3) in "
+            f"{time.perf_counter() - t0:.1f} s (host, {RENDER_WORKERS} processes)")
+        t0 = time.perf_counter()
+        k_dir, t_dir, c_dir = (os.path.join(root, d) for d in ("kitti", "tum", "csv"))
+        k_yaml, k_mono_yaml = script.write_kitti(kitti, k_dir, images=kitti_frames)
+        t_yaml = script.write_tum_rgbd(tum, t_dir, frames=tum_frames)
+        csv_seq = SyntheticSequence(seed=0, n_frames=N_CLI, fps=CLI_FPS, speed=0.5,
+                                    baseline=BASELINE, height=H, width=W, fx=FX, fy=FY)
+        c_csv, c_yaml = script.write_csv(csv_seq, c_dir, n_features=N_FEATURES,
+                                         images=csv_images)
+        log(f"[datasets] wrote the KITTI sequence, the TUM recording and the CSV sequence in "
+            f"{time.perf_counter() - t0:.1f} s (host)")
+        del kitti_frames, tum_frames
+
+        # (a) KITTI00-02 stereo: the fused step at 1241x376 / 2000 features / bf 386
+        out = os.path.join(root, "kitti_stereo.txt")
+        argv = ["--dataset", "kitti", "--path", k_dir, "--settings", k_yaml, "--sensor", "stereo",
+                "--format", "kitti", "--kf-output", out + ".kf", "--output", out,
+                "--device", str(dev)]
+        probe = dataset_probe("fused", 2)
+        rep, wall, counts["kitti_stereo"] = _dataset_route("a kitti stereo", argv, probe, smi)
+        rows = np.loadtxt(out, ndmin=2)
+        g = TD.kitti_rows_gates(rows, kitti)
+        log(f"[datasets a kitti stereo] {g['rows']} KITTI rows of 12: unscaled ATE "
+            f"{g['ate'] * 100:.3f} cm, Horn scale {g['scale']:.5f}; {rep['keyframes']} keyframes "
+            f"({len(np.loadtxt(out + '.kf', ndmin=2))} keyframe rows)")
+        check(rep["state"] == "OK" and rep["maps"] == 1 and rep["frames"] == N_KITTI
+              and rows.shape == (N_KITTI, 12) and np.isfinite(rows).all(),
+              f"datasets a: report {rep}, rows {rows.shape}")
+        check(g["ate"] < TD.STEREO_ATE and abs(g["scale"] - 1.0) < TD.STEREO_SCALE,
+              f"datasets a: gates {g}")
+        check(all(r["patch"] == 2 for r in probe.rows), "datasets a: patch gathers per frame "
+              f"{sorted(set(r['patch'] for r in probe.rows))} != 2")
+        fused = [r for r in probe.rows if r["fused"] and not r["host"]]
+        check(fused and all(r["pose"] == 4 for r in fused),
+              "datasets a: a fused frame did not make 4 pose-LM launches")
+        check(len(probe.captured) == 1, "datasets a: no fused frame")
+        gathers, calls, at = probe.captured[0]
+        check(calls[0][0][2].shape[0] == script.KITTI00_02["n_features"],
+              f"datasets a: pose LM rows {calls[0][0][2].shape[0]}")
+        shapes["kitti"] = {
+            "patch_gather": {side: patch_compare(*gathers[j], f"KITTI frame {at} {side}")
+                             for j, side in enumerate(("left", "right"))},
+            "pose_lm": fused_vi_lm_compare(calls, "datasets a kitti stereo", smi, "fused frame"),
+            "frame": at}
+        figures["kitti_stereo"] = dict(g, wall=wall, keyframes=rep["keyframes"],
+                                       median_ms=rep["median_ms"])
+
+        # (b) KITTI00-02 monocular on the same sequence's image_0
+        out = os.path.join(root, "kitti_mono.txt")
+        argv = ["--dataset", "kitti", "--path", k_dir, "--settings", k_mono_yaml, "--sensor",
+                "mono", "--max-frames", str(N_KITTI_MONO), "--output", out, "--device", str(dev)]
+        probe = dataset_probe(None)
+        rep, wall, counts["kitti_mono"] = _dataset_route("b kitti mono", argv, probe, smi)
+        figures["kitti_mono"] = dict(_mono_route_gates(
+            "b kitti mono", rep, np.loadtxt(out, ndmin=2), kitti.timestamps(),
+            lambda t: TD.gt_center(kitti, t)), wall=wall)
+        check(all(r["patch"] == 1 for r in probe.rows), "datasets b: patch gathers per frame")
+        fused = [r for r in probe.rows if r["fused"] and not r["host"]]
+        check(fused and all(r["pose"] == 4 for r in fused),
+              "datasets b: a fused frame did not make 4 pose-LM launches")
+
+        # (c) TUM3 RGB-D: the host path at 640x480, DepthMapFactor 5000 applied once
+        out = os.path.join(root, "tum.txt")
+        argv = ["--dataset", "tum_rgbd", "--path", t_dir, "--settings", t_yaml, "--sensor",
+                "rgbd", "--eval", "--output", out, "--device", str(dev)]
+        probe = dataset_probe("host")
+        rep, wall, counts["tum_rgbd"] = _dataset_route("c tum rgbd", argv, probe, smi)
+        rows = np.loadtxt(out, ndmin=2)
+        g = TD.tum_rows_gates(rows, tum, t0=script.TUM_T0)
+        per_frame = [r["pose"] for r in probe.rows]
+        log(f"[datasets c tum rgbd] report ate_rmse {rep.get('ate_rmse')} m; the rows' unscaled "
+            f"ATE {g['ate'] * 100:.3f} cm, Horn scale {g['scale']:.5f}; pose-LM launches per "
+            f"frame after the first: min {min(per_frame[1:])}, median "
+            f"{int(np.median(per_frame[1:]))}")
+        check(rep["state"] == "OK" and rep["frames"] == N_TUM and rows.shape == (N_TUM, 8)
+              and rep.get("ate_rmse", 1.0) < TD.STEREO_ATE
+              and abs(g["scale"] - 1.0) < TD.STEREO_SCALE, f"datasets c: report {rep}, {g}")
+        check(min(per_frame[1:]) > 0, "datasets c: a frame without a pose-LM launch")
+        check(all(r["patch"] == 1 for r in probe.rows), "datasets c: patch gathers per frame")
+        check(len(probe.captured) == 1, "datasets c: no host frame")
+        gathers, solves, at = probe.captured[0]
+        shapes["tum"] = {"patch_gather": patch_compare(*gathers[0], f"TUM frame {at}"),
+                         "pose_lm": fused_vi_lm_compare(solves, "datasets c tum rgbd", smi,
+                                                        "host frame", host=True),
+                         "frame": at}
+        figures["tum_rgbd"] = dict(g, report_ate=rep["ate_rmse"], wall=wall,
+                                   median_ms=rep["median_ms"])
+        check(all(r["agreement"] == 1.0 for k in ("kitti", "tum")
+                  for name, r in shapes[k]["pose_lm"].items() if name.startswith("call_")),
+              "datasets: a pose-LM call's inlier flags differ from the plain version's")
+
+        # (d) the fork's CSV: phase 9's left frames, ns stamps
+        out = os.path.join(root, "csv.txt")
+        argv = ["--dataset", "csv", "--path", c_csv, "--settings", c_yaml, "--sensor", "mono",
+                "--output", out, "--device", str(dev)]
+        probe = dataset_probe(None)
+        rep, wall, counts["csv_mono"] = _dataset_route("d csv mono", argv, probe, smi)
+        rows = np.loadtxt(out, ndmin=2)
+        stamps = datasets.load_csv_sequence(c_csv, c_dir).times
+        t0_csv = script.CSV_T0_NS * 1e-9
+        figures["csv_mono"] = dict(_mono_route_gates(
+            "d csv mono", rep, rows, stamps, lambda t: TD.gt_center(csv_seq, t - t0_csv)),
+            wall=wall)
+        first = figures["csv_mono"]["init_frame"]
+        check(np.array_equal(rows[:, 0], stamps[first:first + len(rows)]),
+              "datasets d: the rows' stamps are not the CSV's")
+        check(all(r["patch"] == 1 for r in probe.rows), "datasets d: patch gathers per frame")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[datasets] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+    return counts, shapes, figures
+
+
 def main():
     import torch
 
@@ -3409,11 +3760,17 @@ def main():
         f"{RENDER_WORKERS} processes)")
     records = phase_kernels(dev, seq)
     # the phases in processes of their own start where the host has cores to
-    # spare, after phase 2's timings: 7 (b), 15 and 17 beside phases 3-8, 12 (b),
-    # 13, 14 and 16 beside 9-12; their results are taken at the end
-    children = {"mono_vi_async": PhaseInChild("phase_mono_vi_async", dev, smi),
+    # spare, after phase 2's timings: 7, 7 (b), 15, 16 (b) async, 17 and 18
+    # beside phases 3-8 (16 b async, the most sensitive to the host's load,
+    # away from the heavier second group), 12 (b), 13, 14 and 16 (a, b) beside
+    # 9-12; their results are taken at the end
+    children = {"mono_vi": PhaseInChild("phase_mono_vi_alone", dev, smi, False),
+                "mono_vi_async": PhaseInChild("phase_mono_vi_alone", dev, smi, True),
                 "vi_schedule": PhaseInChild("phase_vi_schedule", dev, smi),
-                "mono_vi_merge": PhaseInChild("phase_mono_vi_merge", dev, smi)}
+                "mono_vi_merge": PhaseInChild("phase_mono_vi_merge", dev, smi),
+                "datasets": PhaseInChild("phase_datasets", dev, smi,
+                                         [pair[0] for pair in frames[:N_CLI]]),
+                "vi_merge_b_async": PhaseInChild("phase_vi_merge", dev, smi, "b", True)}
     by_path = {"fused_step": phase_slice(dev, seq, frames)}
     by_path.update(phase_system(dev, seq, frames, smi))
     cli_images, cli_b_images = frames[:N_CLI], frames[CLI_B_START:CLI_B_START + N_CLI]
@@ -3421,14 +3778,10 @@ def main():
     loop_frames = render_loop()
     by_path["mono_loop"] = phase_mono_loop(dev, smi, loop_frames)
     by_path["rgbd"] = phase_rgbd(dev, smi)
-    vi_data = render_mono_vi()
-    by_path["mono_vi"] = phase_mono_vi(dev, smi, vi_data)
-    del vi_data
     by_path["fisheye_stereo"], fish_shapes = phase_fisheye(dev, smi)
-    # phase 16's branches (b also with the mapper on its own thread), 12 (b), 13
-    # and 14
+    # phase 16's branches a and b, 12 (b), 13 and 14
     children.update({f"vi_merge_{b}": PhaseInChild("phase_vi_merge", dev, smi, b[0], b != b[0])
-                     for b in N_VI_MERGE})
+                     for b in N_VI_MERGE if b != "b_async"})
     children.update(stereo_vi_async=PhaseInChild("phase_stereo_vi", dev, smi, True),
                     fisheye_stereo_vi=PhaseInChild("phase_fisheye_vi", dev, smi, True),
                     fisheye_mono_vi=PhaseInChild("phase_fisheye_vi", dev, smi, False))
@@ -3449,13 +3802,16 @@ def main():
                 failed.append(exc)
         if failed:
             raise failed[0]
-    by_path["mono_vi_async"] = got["mono_vi_async"]
+    by_path["mono_vi"], by_path["mono_vi_async"] = got["mono_vi"], got["mono_vi_async"]
+    dataset_counts, dataset_shapes, dataset_figures = got["datasets"]
+    by_path.update(dataset_counts)
+    log(f"[datasets] {json.dumps(dataset_figures)}")
     by_path["vi_schedule"], vi_schedule_shapes = got["vi_schedule"]
     by_path["mono_vi_merge"], mono_vi_shapes, mono_vi_figures = got["mono_vi_merge"]
     control = mono_vi_figures.pop("control")
     log(f"[mono_vi_merge] {mono_vi_figures}; the control without a vocabulary: maps "
-        f"{control['maps']}, {control['state']}, the sessions' Horn scales "
-        f"{control['gates']['scales']}, scaled ATE {control['gates']['ate'] * 100:.3f} cm")
+        f"{control['maps']}, {control['state']}, {control['rows']} rows, two-view inits on "
+        f"frames {control['inits']}")
     for name in ("fisheye_stereo_vi", "fisheye_mono_vi"):
         by_path[name], shapes = got[name]
         fish_shapes.update(shapes)
@@ -3482,6 +3838,10 @@ def main():
     patch["cli_e_shapes"] = dict(cli_e_shapes["patch_gather"], frame=cli_e_shapes["frame"])
     patch["mono_vi_merge_shapes"] = dict(mono_vi_shapes["patch_gather"],
                                          frame=mono_vi_shapes["frame"])
+    patch["datasets_shapes"] = {
+        **{f"kitti_{side}": dict(r, frame=dataset_shapes["kitti"]["frame"])
+           for side, r in dataset_shapes["kitti"]["patch_gather"].items()},
+        "tum": dict(dataset_shapes["tum"]["patch_gather"], frame=dataset_shapes["tum"]["frame"])}
     patch["max_abs_err"] = max([patch["max_abs_err"], patch["sensors_rgbd_shapes"]["max_abs_err"],
                                 patch["vi_schedule_shapes"]["max_abs_err"]]
                                + [r["max_abs_err"] for r in fish_shapes.values()]
@@ -3489,7 +3849,8 @@ def main():
                                + [r["max_abs_err"]
                                   for r in patch["stereo_vi_async_shapes"].values()]
                                + [patch["cli_e_shapes"]["max_abs_err"],
-                                  patch["mono_vi_merge_shapes"]["max_abs_err"]])
+                                  patch["mono_vi_merge_shapes"]["max_abs_err"]]
+                               + [r["max_abs_err"] for r in patch["datasets_shapes"].values()])
     lm["sensors_rgbd_shapes"] = rgbd_shapes
     lm["stereo_vi_shapes"] = stereo_vi_shapes
     lm["stereo_vi_async_shapes"] = dict(stereo_vi_async_shapes["pose_lm"],
@@ -3499,11 +3860,14 @@ def main():
                              for b, v in vi_merge_shapes.items()}
     lm["cli_e_shapes"] = dict(cli_e_shapes["pose_lm"], frame=cli_e_shapes["frame"])
     lm["mono_vi_merge_shapes"] = dict(mono_vi_shapes["pose_lm"], frame=mono_vi_shapes["frame"])
+    lm["datasets_shapes"] = {k: dict(dataset_shapes[k]["pose_lm"], frame=dataset_shapes[k]["frame"])
+                             for k in ("kitti", "tum")}
     lm["max_abs_err"] = max([lm["max_abs_err"], stereo_vi_shapes.pop("max_abs_err"),
                              lm["vi_schedule_shapes"].pop("max_abs_err"),
                              lm["stereo_vi_async_shapes"].pop("max_abs_err"),
                              lm["cli_e_shapes"].pop("max_abs_err"),
                              lm["mono_vi_merge_shapes"].pop("max_abs_err")]
+                            + [v.pop("max_abs_err") for v in lm["datasets_shapes"].values()]
                             + [v.pop("max_abs_err") for v in lm["vi_merge_shapes"].values()]
                             + [max(r["dR"], r["dt"]) for r in rgbd_shapes.values()])
     frames_by_path = {"fused_step": N_FRAMES - 1, "a_sync": N_SYSTEM,
@@ -3519,6 +3883,8 @@ def main():
                       "frontend_chain": N_CHAIN, "graft_entry": 1, "bench_system": 2 * N_BENCH,
                       "sensors_rgbd": 2 * N_SENSORS,
                       "mono_vi_merge": N_MONO_VI_MERGE[0] + N_MONO_VI_MERGE[2],
+                      "kitti_stereo": N_KITTI, "kitti_mono": N_KITTI_MONO, "tum_rgbd": N_TUM,
+                      "csv_mono": N_CLI,
                       **{f"vi_merge_{b}": n[0] + n[2] for b, n in N_VI_MERGE.items()}}
     for r in records:
         r["launches"] = sum(c[r["name"]] for c in by_path.values())

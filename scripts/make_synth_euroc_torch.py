@@ -130,6 +130,11 @@ def write_euroc(seq, out, n_features=700, images=None):
     (pre-rectified pinhole pair, ideal IMU) to out/synth.yaml; returns the
     YAML's path."""
     write_tree(seq, out, images)
+    return _write_yaml(seq, out, n_features)
+
+
+def _write_yaml(seq, out, n_features):
+    """write_euroc's settings file, out/synth.yaml; returns its path."""
     yaml_path = os.path.join(out, "synth.yaml")
     with open(yaml_path, "w") as fh:
         fh.write(f"""%YAML:1.0
@@ -215,6 +220,216 @@ ORBextractor.iniThFAST: 20
 ORBextractor.minThFAST: 7
 """)
     return yaml_path
+
+
+# the published settings files' camera and extractor values
+# (Examples/Stereo/KITTI00-02.yaml, Examples/Monocular/KITTI00-02.yaml,
+# Examples/RGB-D/TUM3.yaml)
+KITTI00_02 = dict(fx=718.856, fy=718.856, cx=607.1928, cy=185.2157, width=1241, height=376,
+                  bf=386.1448, fps=10.0, n_features=2000)
+TUM3 = dict(fx=535.4, fy=539.2, cx=320.1, cy=247.6, width=640, height=480, bf=40.0, fps=30.0,
+            n_features=1000, depth_map_factor=5000.0)
+TUM_T0 = 1305031102.175304     # the first rgb stamp of a TUM RGB-D recording (s)
+CSV_T0_NS = 1403636579763555584  # the first stamp of EuRoC's MH01 (ns)
+
+
+def _orb_block(n_features):
+    return f"""
+#--------------------------------------------------------------------------------------------
+# ORB Parameters
+#--------------------------------------------------------------------------------------------
+
+# ORB Extractor: Number of features per image
+ORBextractor.nFeatures: {n_features}
+
+# ORB Extractor: Scale factor between levels in the scale pyramid
+ORBextractor.scaleFactor: 1.2
+
+# ORB Extractor: Number of levels in the scale pyramid
+ORBextractor.nLevels: 8
+
+# ORB Extractor: Fast threshold
+# Image is divided in a grid. At each cell FAST are extracted imposing a maximum threshold.
+# Firstly we impose iniThFAST. If no corners are detected we impose a lower value minThFAST
+# You can lower these values if your images have low contrast
+ORBextractor.iniThFAST: 20
+ORBextractor.minThFAST: 7
+
+#--------------------------------------------------------------------------------------------
+# Viewer Parameters
+#--------------------------------------------------------------------------------------------
+Viewer.KeyFrameSize: 0.6
+Viewer.KeyFrameLineWidth: 2
+Viewer.GraphLineWidth: 1
+Viewer.PointSize: 2
+Viewer.CameraSize: 0.7
+Viewer.CameraLineWidth: 3
+Viewer.ViewpointX: 0
+Viewer.ViewpointY: -100
+Viewer.ViewpointZ: -0.1
+Viewer.ViewpointF: 2000
+"""
+
+
+def _camera_block(fx, fy, cx, cy, width, height, fps):
+    return f"""%YAML:1.0
+
+#--------------------------------------------------------------------------------------------
+# Camera Parameters. Adjust them!
+#--------------------------------------------------------------------------------------------
+Camera.type: "PinHole"
+
+# Camera calibration and distortion parameters (OpenCV)
+Camera.fx: {fx!r}
+Camera.fy: {fy!r}
+Camera.cx: {cx!r}
+Camera.cy: {cy!r}
+
+Camera.k1: 0.0
+Camera.k2: 0.0
+Camera.p1: 0.0
+Camera.p2: 0.0
+
+Camera.width: {width}
+Camera.height: {height}
+
+# Camera frames per second
+Camera.fps: {fps!r}
+"""
+
+
+def kitti_yaml(fx, fy, cx, cy, width, height, bf, fps=10.0, n_features=2000, mono=False):
+    """The text of the reference's KITTI00-02.yaml (Examples/Stereo, or with
+    mono=True Examples/Monocular: no baseline and no ThDepth) with the given
+    values; KITTI00_02 holds the published ones."""
+    stereo = "" if mono else f"""
+# stereo baseline times fx
+Camera.bf: {bf!r}
+"""
+    depth = "" if mono else """
+# Close/Far threshold. Baseline times.
+ThDepth: 35
+"""
+    return (_camera_block(fx, fy, cx, cy, width, height, fps) + stereo + """
+# Color order of the images (0: BGR, 1: RGB. It is ignored if images are grayscale)
+Camera.RGB: 1
+""" + depth + _orb_block(n_features))
+
+
+def tum3_yaml(fx, fy, cx, cy, width, height, bf, fps=30.0, n_features=1000,
+              depth_map_factor=5000.0):
+    """The text of the reference's Examples/RGB-D/TUM3.yaml with the given
+    values; TUM3 holds the published ones."""
+    return (_camera_block(fx, fy, cx, cy, width, height, fps).replace(
+        "Camera.p2: 0.0\n", "Camera.p2: 0.0\nCamera.k3: 0.0\n") + f"""
+# IR projector baseline times fx (aprox.)
+Camera.bf: {bf!r}
+
+# Color order of the images (0: BGR, 1: RGB. It is ignored if images are grayscale)
+Camera.RGB: 1
+
+# Close/Far threshold. Baseline times.
+ThDepth: 40.0
+
+# Deptmap values factor
+DepthMapFactor: {depth_map_factor!r}
+""" + _orb_block(n_features))
+
+
+def _gray(seq, i, images, right=False):
+    if images is not None:
+        return images[i][int(right)] if isinstance(images[i], tuple) else images[i]
+    return np.clip(seq.frame(i, right=right), 0, 255).astype(np.uint8)
+
+
+def write_kitti(seq, out, n_features=2000, images=None):
+    """Write `seq`'s stereo frames as a KITTI odometry sequence (times.txt,
+    image_0/ and image_1/ <%06d>.png, stamped from 0 s as KITTI's are) and
+    the reference's KITTI00-02.yaml with seq's camera and baseline, stereo
+    to out/KITTI.yaml and monocular to out/KITTI_mono.yaml; returns the two
+    paths. KITTI's pose files are not written: the loaders read none.
+    images: the (left, right) uint8 frames where the caller has rendered
+    them already."""
+    for d in ("image_0", "image_1"):
+        os.makedirs(os.path.join(out, d), exist_ok=True)
+    with open(os.path.join(out, "times.txt"), "w") as fh:
+        fh.writelines(f"{t:.6e}\n" for t in seq.timestamps())
+    for i in range(seq.n_frames):
+        for d, right in (("image_0", False), ("image_1", True)):
+            write_png(os.path.join(out, d, f"{i:06d}.png"), _gray(seq, i, images, right))
+    paths = []
+    for name, mono in (("KITTI.yaml", False), ("KITTI_mono.yaml", True)):
+        paths.append(os.path.join(out, name))
+        with open(paths[-1], "w") as fh:
+            fh.write(kitti_yaml(seq.fx, seq.fy, seq.cx, seq.cy, seq.width, seq.height,
+                                seq.fx * seq.baseline, seq.fps, n_features, mono=mono))
+    return tuple(paths)
+
+
+def tum_colour(gray):
+    """An RGB image of a gray render, tinted (red up, blue down), whose
+    IMREAD_GRAYSCALE conversion is the render within 3 gray levels."""
+    g = gray.astype(np.int16)
+    return np.stack([np.clip(g + 12, 0, 255), g, np.clip(g - 12, 0, 255)], -1).astype(np.uint8)
+
+
+def write_tum_rgbd(seq, out, n_features=1000, t0=TUM_T0, depth_map_factor=5000.0, frames=None):
+    """Write `seq`'s RGB-D frames as a TUM RGB-D recording: rgb/ colour PNGs
+    and depth/ uint16 PNGs (depth_map_factor per metre, 0 where there is no
+    return or the range overflows 16 bits), rgb.txt and depth.txt (the depth
+    stamps a few ms off the colour ones, as the two streams are), and
+    groundtruth.txt at 100 Hz (t tx ty tz qx qy qz qw, camera to world),
+    stamped from t0 in epoch seconds; the reference's TUM3.yaml with seq's
+    camera to out/TUM3.yaml, whose path it returns. frames: (image, depth)
+    of seq where the caller has rendered them already."""
+    for d in ("rgb", "depth"):
+        os.makedirs(os.path.join(out, d), exist_ok=True)
+    rgb = ["# color images", "# file: 'rgbd_dataset_synthetic.bag'", "# timestamp filename"]
+    dep = ["# depth maps", "# file: 'rgbd_dataset_synthetic.bag'", "# timestamp filename"]
+    for i, t in enumerate(seq.timestamps()):
+        img, depth = seq.frame_rgbd(i) if frames is None else frames[i]
+        tc, td = t0 + t, t0 + t + 0.004 * ((i % 3) - 1)
+        write_png(os.path.join(out, "rgb", f"{tc:.6f}.png"),
+                  tum_colour(np.clip(img, 0, 255).astype(np.uint8)))
+        raw = np.round(np.asarray(depth, np.float64) * depth_map_factor)
+        write_png(os.path.join(out, "depth", f"{td:.6f}.png"),
+                  np.where((raw > 0) & (raw <= 65535), raw, 0).astype(np.uint16))
+        rgb.append(f"{tc:.6f} rgb/{tc:.6f}.png")
+        dep.append(f"{td:.6f} depth/{td:.6f}.png")
+    for name, lines in (("rgb.txt", rgb), ("depth.txt", dep)):
+        with open(os.path.join(out, name), "w") as fh:
+            fh.write("\n".join(lines) + "\n")
+    with open(os.path.join(out, "groundtruth.txt"), "w") as fh:
+        fh.write("# ground truth trajectory\n# file: 'rgbd_dataset_synthetic.bag'\n"
+                 "# timestamp tx ty tz qx qy qz qw\n")
+        for t in np.arange(-0.0473, seq.n_frames / seq.fps + 0.05, 0.01):
+            Rcw, tcw = seq.gt_pose_cw(t)
+            p = -Rcw.T @ tcw
+            q = lie.rot_to_quat(torch.as_tensor(Rcw.T)).numpy()  # x,y,z,w
+            fh.write(f"{t0 + t:.4f} {p[0]:.4f} {p[1]:.4f} {p[2]:.4f} "
+                     f"{q[0]:.4f} {q[1]:.4f} {q[2]:.4f} {q[3]:.4f}\n")
+    yaml_path = os.path.join(out, "TUM3.yaml")
+    with open(yaml_path, "w") as fh:
+        fh.write(tum3_yaml(seq.fx, seq.fy, seq.cx, seq.cy, seq.width, seq.height,
+                           seq.fx * seq.baseline, seq.fps, n_features, depth_map_factor))
+    return yaml_path
+
+
+def write_csv(seq, out, n_features=1000, t0_ns=CSV_T0_NS, images=None):
+    """Write `seq`'s left frames in the Mac fork's CSV format: out/seq.csv
+    with `timestamp,filename` rows (ns, stamped from t0_ns) and the images
+    under out/data/, with write_euroc's settings file (synth.yaml);
+    returns (the CSV's path, the settings' path)."""
+    os.makedirs(os.path.join(out, "data"), exist_ok=True)
+    rows = ["#timestamp [ns],filename"]
+    for i, t in enumerate(seq.timestamps()):
+        t_ns = t0_ns + int(round(t * 1e9))
+        write_png(os.path.join(out, "data", f"{t_ns}.png"), _gray(seq, i, images))
+        rows.append(f"{t_ns},data/{t_ns}.png")
+    csv_path = os.path.join(out, "seq.csv")
+    with open(csv_path, "w") as fh:
+        fh.write("\n".join(rows) + "\n")
+    return csv_path, _write_yaml(seq, out, n_features)
 
 
 def identity_rectification_yaml(seq):

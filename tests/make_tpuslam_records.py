@@ -71,6 +71,15 @@ def _tum_vi_cli(tmp):
     return mod._tpuslam_runs(tree[1], tree[2]), mod.record_inputs(tree)
 
 
+def _dataset_cli(module):
+    """A dataset-CLI test module's tpuslam runs on its written tree."""
+    def record(tmp):
+        mod = _module(module)
+        tree = mod.write_tree(os.path.join(tmp, "tree"))
+        return mod._tpuslam_runs(*tree[1:]), mod.record_inputs(tree)
+    return record
+
+
 # record name -> its writer: (a scratch directory) -> (tpuslam's result, input fingerprints)
 RECORDS = {
     "vi_system": _plain("test_torch_vi_system", "_tpuslam_slice"),
@@ -84,6 +93,9 @@ RECORDS = {
     "vi_merge": _vi_merge,
     "mono_vi_merge": _mono_vi_merge,
     "tum_vi_cli": _tum_vi_cli,
+    "kitti_cli": _dataset_cli("test_torch_kitti_cli"),
+    "tum_rgbd_cli": _dataset_cli("test_torch_tum_rgbd_cli"),
+    "csv_cli": _dataset_cli("test_torch_csv_cli"),
 }
 
 

@@ -354,7 +354,9 @@ def test_load_settings_matches_tpuslam(name, tmp_path):
     for k in ("n_features", "scale", "n_levels", "ini_th", "min_th"):
         assert getattr(o, k) == getattr(jo, k), k
     assert got.cfg.th_depth == want.cfg.th_depth
-    assert got.cfg.depth_map_factor == want.cfg.depth_map_factor
+    # the port keeps 1 / DepthMapFactor, which its tracker applies once to the raw
+    # depth image; tpuslam keeps DepthMapFactor and applies it twice (ROADMAP §3)
+    assert got.cfg.depth_map_factor == 1.0 / want.cfg.depth_map_factor
     assert got.cfg.tracking.max_frames_between_kf == want.cfg.tracking.max_frames_between_kf
     assert (got.bf, got.fps, got.has_imu) == (want.bf, want.fps, want.has_imu)
     assert _same_array(got.Tbc, want.Tbc) and _same_array(got.Tlr, want.Tlr)
@@ -377,7 +379,7 @@ def test_load_settings_matches_tpuslam(name, tmp_path):
         assert got.camera.kind == got.camera2.kind == "kb8" and got.camera.lapping == (0, 511)
         assert got.Tlr.shape == (4, 4) and got.Tlr[3, 3] == 1.0
     if name == "tum_rgbd":
-        assert got.cfg.depth_map_factor == 5000.0 and got.camera.dist[4] != 0
+        assert got.cfg.depth_map_factor == 1.0 / 5000.0 and got.camera.dist[4] != 0
 
 
 SCALARS = """a: 1

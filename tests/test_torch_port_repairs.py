@@ -5,12 +5,14 @@
     bench_frontend_torch.py, the scripts/*_torch.py files and the tests'
     helpers that chip_smoke.py imports (tests/torch_vi_heave.py,
     tests/torch_fisheye_rig.py, tests/torch_vi_merge.py, tests/torch_async.py,
-    tests/torch_mono_vi_merge.py) and tests/torch_mono_merge.py and
+    tests/torch_mono_vi_merge.py, tests/torch_datasets.py) and tests/torch_mono_merge.py and
     tests/torch_records.py,
     imports tpuslam or jax, nor what the card host lacks: cv2, yaml,
     matplotlib, PIL (a
     subprocess with all of them blocked imports them all and writes a
-    TUM-VI tree with make_synth_euroc_torch.write_tum_vi; tpuslam_torch.viz imports
+    TUM-VI tree with make_synth_euroc_torch.write_tum_vi, and a KITTI
+    sequence, a TUM RGB-D recording and a CSV sequence that the port's
+    loaders and settings read back; tpuslam_torch.viz imports
     matplotlib only when it draws). The helpers import nothing but the
     port and numpy (torch_async: the standard library), and
     scripts/tum_vi_examples_torch.sh and
@@ -80,6 +82,7 @@ import torch_async
 import torch_mono_merge
 import torch_records
 import torch_mono_vi_merge
+import torch_datasets
 assert len(torch_vi_merge.heave_sessions(2, 1, 2)[1]) == 2
 assert torch_mono_vi_merge.config().inertial.viba2_time == 1.0
 assert torch_mono_merge.config().orb.n_features == torch_mono_merge.N_FEATURES
@@ -94,6 +97,17 @@ from tpuslam_torch.io.settings import load_settings
 assert len(load_tum_vi(out, stereo=True, with_imu=True)) == 2
 assert load_settings(out + "/tum_vi.yaml").camera2.kind == "kb8"
 assert len(torch_records.text_digest(out + "/tum_vi.yaml")) == 64
+# the KITTI, TUM RGB-D and CSV writers, on 2 frames at a tenth of the size
+from tpuslam_torch.io import datasets
+sc = torch_datasets.script()
+kitti, tum = torch_datasets.kitti_sequence(2, 0.1), torch_datasets.tum_sequence(2, 0.1)
+k_yaml, _ = sc.write_kitti(kitti, out + "/kitti")
+t_yaml = sc.write_tum_rgbd(tum, out + "/tum")
+c_csv, _ = sc.write_csv(torch_datasets.csv_sequence(2), out + "/csv")
+assert load_settings(k_yaml).camera.width == 124 and len(datasets.load_kitti(out + "/kitti")) == 2
+assert load_settings(t_yaml).cfg.depth_map_factor == 1 / 5000.0
+assert datasets.load_tum_rgbd(out + "/tum").depth(1).max() > 0
+assert len(datasets.load_csv_sequence(c_csv, out + "/csv")) == 2
 # the long VI run's --stereo sequence (the heave helper, imported by the script)
 vi_f32 = scripts["scripts/vi_f32_experiment_torch.py"]
 assert type(vi_f32.sequence(3, stereo=True).traj) is torch_vi_heave.HeaveTrajectory
@@ -164,6 +178,13 @@ def test_records_helper_imports_only_the_standard_library_and_numpy():
     """tests/torch_records.py (tpuslam's recorded lockstep sides) loads
     without jax."""
     assert _import_roots("torch_records.py") == {"gzip", "hashlib", "os", "pickle", "numpy"}
+
+
+def test_datasets_helper_imports_only_the_port_and_numpy():
+    """So does tests/torch_datasets.py (phase 18's sequences and gates),
+    beside the standard library."""
+    assert _import_roots("torch_datasets.py") == {"functools", "importlib", "os", "numpy",
+                                                  "tpuslam_torch"}
 
 
 def test_async_helper_imports_only_the_standard_library():

@@ -172,4 +172,6 @@ class SlamConfig:
     loop: LoopConfig = field(default_factory=LoopConfig)
     # stereo / rgbd
     th_depth: float = 35.0               # close/far stereo point gate (b x 35)
+    # metres per unit of the depth image track_rgbd is given (the settings
+    # file's 1 / DepthMapFactor; 1 for depth in metres)
     depth_map_factor: float = 1.0

@@ -132,9 +132,11 @@ class System:
 
     def track_rgbd(self, img, depth, timestamp: float, imu=None):
         """ref: System::TrackRGBD (System.cc:294); depth in the units that
-        SlamConfig.depth_map_factor scales to meters. RGB-D frames take the
-        host tracking path; on an IMU_STEREO System (tpuslam's inertial
-        route for depth frames) they carry `imu=` samples."""
+        SlamConfig.depth_map_factor scales to meters: metres with the
+        default 1.0, the raw image with a settings file's 1 / DepthMapFactor
+        (as run.py passes it). RGB-D frames take the host tracking path; on
+        an IMU_STEREO System (tpuslam's inertial route for depth frames) they
+        carry `imu=` samples."""
         self._check_sensor("track_rgbd", Sensor.RGBD, Sensor.IMU_STEREO)
         return self._pose(self.tracker.track(img, timestamp, depth=depth, imu=imu))
 

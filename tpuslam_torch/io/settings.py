@@ -331,6 +331,8 @@ class Settings:
 
 def load_settings(path: str, width: int | None = None,
                   height: int | None = None) -> Settings:
+    """The settings file at `path`; width / height give the image size where
+    the file has no Camera.width / Camera.height (and raise without it)."""
     with open(path) as fh:
         raw = parse_opencv_yaml(fh.read())
 
@@ -342,8 +344,14 @@ def load_settings(path: str, width: int | None = None,
     fy = float(get("Camera.fy"))
     cx = float(get("Camera.cx"))
     cy = float(get("Camera.cy"))
-    w = int(get("Camera.width", width or 752))
-    h = int(get("Camera.height", height or 480))
+    # the image size: the file's, else the caller's (run.py passes its first
+    # image's, as the reference's frames take their bounds from the image);
+    # tpuslam falls back to EuRoC's 752x480, which would clip a KITTI frame
+    w, h = get("Camera.width", width), get("Camera.height", height)
+    if w is None or h is None:
+        raise ValueError(f"{path}: no Camera.width / Camera.height; pass the image size "
+                         "(load_settings(path, width, height))")
+    w, h = int(w), int(h)
     if cam_type.lower() in ("kannalabrandt8", "kb8", "fisheye"):
         k = [float(get(f"Camera.k{i}", 0.0)) for i in (1, 2, 3, 4)]
         lap = None
@@ -367,8 +375,13 @@ def load_settings(path: str, width: int | None = None,
     )
     cfg = SlamConfig(orb=orb)
     cfg.th_depth = float(get("ThDepth", get("Camera.ThDepth", 35.0)))
+    # metres per raw depth unit, applied once by the tracker to the depth
+    # image as read (ref: Tracking.cc mDepthMapFactor = 1 / DepthMapFactor,
+    # 1 where it is 0; GrabImageRGBD scales the raw image by it). tpuslam
+    # keeps DepthMapFactor itself and divides the image by it in run.py
+    # before its tracker multiplies by it again.
     dmf = float(get("DepthMapFactor", 1.0))
-    cfg.depth_map_factor = dmf if dmf > 1e-6 else 1.0
+    cfg.depth_map_factor = 1.0 / dmf if abs(dmf) > 1e-5 else 1.0
     fps = float(get("Camera.fps", 30.0))
     cfg.tracking.max_frames_between_kf = int(round(fps))
     bf = float(get("Camera.bf", 0.0))

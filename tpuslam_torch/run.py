@@ -85,7 +85,9 @@ def main(argv=None):
     seqs = [load_one(p_) for p_ in paths]
     seq = seqs[0]
 
-    st = load_settings(args.settings)
+    # the first image's size stands in for a missing Camera.width / height
+    h0, w0 = seq.frame(0).shape[:2]
+    st = load_settings(args.settings, width=w0, height=h0)
     sensor = {
         "mono": Sensor.MONOCULAR, "stereo": Sensor.STEREO,
         "rgbd": Sensor.RGBD, "mono_imu": Sensor.IMU_MONOCULAR,
@@ -128,8 +130,9 @@ def main(argv=None):
                     im_l, im_r = rectifier(im_l, im_r)
                 slam.track_stereo(im_l, im_r, t, imu=imu)
             elif args.sensor == "rgbd":
-                slam.track_rgbd(sq.frame(i),
-                                sq.depth(i, st.cfg.depth_map_factor), t)
+                # the depth image as read: the tracker scales it once by
+                # depth_map_factor (1 / DepthMapFactor, ref GrabImageRGBD)
+                slam.track_rgbd(sq.frame(i), sq.depth(i), t)
             else:
                 slam.track_monocular(sq.frame(i), t, imu=imu)
             times_ms.append((time.perf_counter() - tic) * 1e3)
